@@ -1,0 +1,46 @@
+"""Bring state of the reference package, handed over as numpy, into the port.
+
+The reference's objects export plain numpy (``BucketCurvefitModel.to_dict()``,
+``np.asarray`` of its parameter arrays), so the port never imports it:
+
+    model = bucket_model_from_dict(ref_model.to_dict())
+    head = head_params_from_numpy([{k: np.asarray(v) for k, v in p.items()}
+                                   for p in ref_head_params])
+    kernel = tensor_from_numpy(np.asarray(ref_kernel))   # on the card by default
+
+Both sides then compute on the same numbers; random streams are never
+compared.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Iterable
+
+import numpy as np
+import torch
+
+from repro_torch.core.curvefit import BucketCurvefitModel
+from repro_torch.device import resolve_device
+
+__all__ = ["bucket_model_from_dict", "head_params_from_numpy", "tensor_from_numpy"]
+
+
+def bucket_model_from_dict(d: dict) -> BucketCurvefitModel:
+    """A fitted bucket model from the reference's ``to_dict()``."""
+    return BucketCurvefitModel.from_dict(d)
+
+
+def tensor_from_numpy(a: Any, *, device: str | torch.device | None = None) -> torch.Tensor:
+    """A float32 tensor (NVM kernel, BN offsets, images) on ``device`` (the
+    card by default)."""
+    return torch.tensor(np.asarray(a, np.float32), device=resolve_device(device))
+
+
+def head_params_from_numpy(
+    params: Iterable[dict], *, device: str | torch.device | None = None
+) -> list[dict[str, torch.Tensor]]:
+    """Chain-head parameters, one dict per stage (``{}`` for parameterless
+    stages), with the reference's layouts kept: ``(d_in, d_out)`` dense and
+    ``(c_out, k, k, c_in)`` conv weights."""
+    dev = resolve_device(device)
+    return [{k: tensor_from_numpy(v, device=dev) for k, v in dict(p).items()} for p in params]

@@ -1,0 +1,87 @@
+"""FPCA spec and output geometry (paper §3.3--§3.4), pure numpy.
+
+The physical kernel footprint is always the max ``n x n``: smaller logical
+kernels are written as zero weights (paper §3.4.1), so the output grid
+(Eq. 8) is computed with ``n``, not the logical ``k``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+
+__all__ = ["FPCASpec", "output_dims", "active_window_mask"]
+
+
+@dataclasses.dataclass(frozen=True)
+class FPCASpec:
+    """Static configuration of one FPCA first-layer convolution."""
+
+    image_h: int
+    image_w: int
+    out_channels: int
+    kernel: int                 # logical kernel size k (k <= max_kernel)
+    stride: int
+    max_kernel: int = 5         # physical n (weight-die provisioning)
+    in_channels: int = 3        # RGB planes, processed concurrently (§3.2)
+    padding: int = 0
+    binning: int = 1            # pixel binning factor (Fig. 9(b))
+    skip_block: int = 8         # region-skipping block granularity (§3.4.5)
+
+    def __post_init__(self) -> None:
+        if self.kernel > self.max_kernel:
+            raise ValueError(f"kernel {self.kernel} exceeds max_kernel {self.max_kernel}")
+        if not (1 <= self.stride <= self.max_kernel):
+            raise ValueError("stride must be in [1, max_kernel] (paper §3.4.3)")
+
+    @property
+    def eff_h(self) -> int:
+        return self.image_h // self.binning
+
+    @property
+    def eff_w(self) -> int:
+        return self.image_w // self.binning
+
+    @property
+    def n_active_pixels(self) -> int:
+        """Pixels activated per window read — always the full n*n*in_ch region."""
+        return self.max_kernel * self.max_kernel * self.in_channels
+
+
+def output_dims(spec: FPCASpec) -> tuple[int, int]:
+    """Eq. 8 with the *physical* kernel n (zero-padded logical kernels)."""
+    n, s, p = spec.max_kernel, spec.stride, spec.padding
+    h_o = (spec.eff_h - n + 2 * p) // s + 1
+    w_o = (spec.eff_w - n + 2 * p) // s + 1
+    if h_o <= 0 or w_o <= 0:
+        raise ValueError("image smaller than physical kernel footprint")
+    return h_o, w_o
+
+
+def active_window_mask(spec: FPCASpec, block_mask: np.ndarray | None) -> np.ndarray:
+    """Region skipping (§3.4.5): which output windows actually execute.
+
+    ``block_mask`` is the per-block keep grid, shape ``(ceil(H/B), ceil(W/B))``
+    booleans (True = keep).  A window executes iff *any* of its pixels lies
+    in a kept block.  Returns a boolean ``(h_o, w_o)`` mask.
+    """
+    h_o, w_o = output_dims(spec)
+    if block_mask is None:
+        return np.ones((h_o, w_o), dtype=bool)
+    b = spec.skip_block
+    exp_h, exp_w = math.ceil(spec.eff_h / b), math.ceil(spec.eff_w / b)
+    if block_mask.shape != (exp_h, exp_w):
+        raise ValueError(f"block_mask shape {block_mask.shape} != {(exp_h, exp_w)}")
+    pixel_keep = np.kron(block_mask, np.ones((b, b), dtype=bool))[: spec.eff_h, : spec.eff_w]
+    n, s = spec.max_kernel, spec.stride
+    if (h_o - 1) * s + n <= spec.eff_h and (w_o - 1) * s + n <= spec.eff_w:
+        # no padding: every window footprint is in-bounds — vectorised form
+        windows = np.lib.stride_tricks.sliding_window_view(pixel_keep, (n, n))
+        return windows[::s, ::s].any(axis=(2, 3))[:h_o, :w_o]
+    mask = np.zeros((h_o, w_o), dtype=bool)
+    for r in range(h_o):
+        for c in range(w_o):
+            mask[r, c] = pixel_keep[r * s : r * s + n, c * s : c * s + n].any()
+    return mask

@@ -1,0 +1,282 @@
+"""The FPCA analog convolution as a basis bank: CUDA kernel and plain version.
+
+Every windowed polynomial sum factors over the monomial basis,
+
+    sum_j f(I_j, W_j) = sum_{a,b} c_ab * <I_patch^a, W^b>,
+
+so the non-linear analog conv is a bank of power-basis contractions combined
+by sigmoid bucket gates.  For the degree-3 bucket surfaces:
+
+* (a=0, b)   -> per-channel constants ``cs[b, c] = sum_j mask_j W[j,c]^b``;
+* (a, b=0)   -> per-window sums       ``rv[a, m] = <I^a, mask>``;
+* (a,b >= 1) -> true dot products, only (1,1), (1,2), (2,1);
+* step-1 estimate -> ``v_est = [mean_i^a] @ aw`` on window/channel means.
+
+Both weight phases and the SS-ADC up/down-count epilogue are evaluated per
+output.  :func:`fpca_conv_cuda` launches the hand-written kernel in
+``csrc/fpca_conv.cu`` on CUDA tensors; :func:`fpca_conv_basis` is the same
+math in plain PyTorch (the CPU path, and the kernel's yardstick on the card).
+The patch matrix is not lane-padded: ``n_real`` is the spec's active pixel
+count, and every slot is real.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from repro_torch.core.adc import ADCConfig
+from repro_torch.core.curvefit import BucketCurvefitModel, _exponent_pairs
+
+__all__ = [
+    "ConvTables",
+    "conv_tables",
+    "precompute_weight_planes",
+    "weight_planes",
+    "fpca_conv_basis",
+    "fpca_conv_cuda",
+]
+
+# Monomial pairs of the degree-3 bucket surfaces; the kernel combines them
+# in this order (the fit's own order).
+_PAIRS = tuple(tuple(int(v) for v in e) for e in _exponent_pairs(3))
+_MM_PAIRS = ((1, 1), (1, 2), (2, 1))    # true dot products
+
+# Layout of the packed constants buffer; csrc/fpca_conv.cu reads the same.
+_MAX_AVG_TERMS = 16
+_MAX_BUCKETS = 8
+_P_N_REAL, _P_SHARP, _P_V_RANGE, _P_LSB, _P_LEVELS, _P_N_BUCKETS, _P_N_AVG = range(7)
+_P_AVG_EXP = 8
+_P_CONST = _P_AVG_EXP + _MAX_AVG_TERMS
+_P_COEF = _P_CONST + _MAX_BUCKETS
+_P_SIZE = _P_COEF + _MAX_BUCKETS * len(_PAIRS)
+
+
+def _ipow(x: torch.Tensor, a: int) -> torch.Tensor:
+    """``x ** a`` by binary exponentiation, the order ``lax.integer_pow``
+    multiplies in (``a = 0`` gives ones)."""
+    acc = None
+    while a > 0:
+        if a & 1:
+            acc = x if acc is None else acc * x
+        a >>= 1
+        if a > 0:
+            x = x * x
+    return torch.ones_like(x) if acc is None else acc
+
+
+def _bucket_tables(model: BucketCurvefitModel) -> dict:
+    """Static per-model tables: combine coefficients keyed by (a, b) pair."""
+    exps = [tuple(int(v) for v in e) for e in model.bucket_exps]
+    coeffs = np.asarray(model.bucket_coeffs)          # (n_buckets, n_terms)
+    v_c = np.asarray(model.v_centers)
+    by_pair = {pair: coeffs[:, exps.index(pair)] / model.n_sweep for pair in exps}
+    const = v_c * (1.0 - model.n_pixels / model.n_sweep)   # B_i affine offset
+    return {"by_pair": by_pair, "const": const}
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ConvTables:
+    """Constants of one executable, built once by :func:`conv_tables`.
+
+    ``packed`` is the kernel's copy: scalars, f_avg exponents and the bucket
+    combine tables in one small float32 buffer on the device.
+    """
+
+    model: BucketCurvefitModel
+    by_pair: dict
+    const: np.ndarray
+    n_real: int
+    lsb: float
+    levels: int
+    mask: torch.Tensor        # (N,) ones — every slot of an unpadded window is real
+    packed: torch.Tensor      # (_P_SIZE,) float32
+
+
+def conv_tables(
+    model: BucketCurvefitModel, adc: ADCConfig, n_real: int, device: torch.device
+) -> ConvTables:
+    """Build the per-executable constants on ``device``."""
+    exps = [tuple(int(v) for v in e) for e in model.bucket_exps]
+    if tuple(exps) != _PAIRS:
+        raise ValueError(
+            f"bucket surfaces must be the degree-3 monomials {_PAIRS}, got {tuple(exps)}"
+        )
+    avg_a = [int(a) for a, _ in model.f_avg.exps]
+    if len(avg_a) > _MAX_AVG_TERMS or model.n_buckets > _MAX_BUCKETS:
+        raise ValueError(
+            f"at most {_MAX_AVG_TERMS} f_avg terms and {_MAX_BUCKETS} buckets, "
+            f"got {len(avg_a)} and {model.n_buckets}"
+        )
+    tables = _bucket_tables(model)
+    packed = np.zeros(_P_SIZE, np.float32)
+    packed[[_P_N_REAL, _P_SHARP, _P_V_RANGE, _P_LSB, _P_LEVELS, _P_N_BUCKETS, _P_N_AVG]] = (
+        n_real, model.sharpness, model.v_range, adc.lsb, adc.levels, model.n_buckets, len(avg_a)
+    )
+    packed[_P_AVG_EXP : _P_AVG_EXP + len(avg_a)] = avg_a
+    packed[_P_CONST : _P_CONST + model.n_buckets] = tables["const"]
+    coef = np.stack([tables["by_pair"][p] for p in _PAIRS], axis=1)   # (n_buckets, 10)
+    packed[_P_COEF : _P_COEF + coef.size] = coef.ravel()
+    return ConvTables(
+        model=model,
+        by_pair=tables["by_pair"],
+        const=np.asarray(tables["const"], np.float32),
+        n_real=int(n_real),
+        lsb=adc.lsb,
+        levels=adc.levels,
+        mask=torch.ones(n_real, device=device),
+        packed=torch.as_tensor(packed, device=device),
+    )
+
+
+def precompute_weight_planes(
+    w: torch.Tensor, mask: torch.Tensor, model: BucketCurvefitModel
+) -> dict[str, torch.Tensor]:
+    """Per-phase weight precomputation (w: (N, C), mask: (N,)).
+
+    Returns:
+      w_pows : (2, N, C) — masked W^1, W^2 (the dot-product operands)
+      cs     : (4, C)    — per-channel constants sum_j mask W^b, b = 0..3
+      aw     : (n_avg_terms, C) — f_avg coeffs folded with meanW powers
+    """
+    wm = w * mask[:, None]
+    n_real = mask.sum()
+    w_pows = torch.stack([wm, wm * wm])
+    cs = torch.stack([mask @ torch.ones_like(w), mask @ w, mask @ (w * w), mask @ (w * w * w)])
+    mean_w = (mask @ w) / n_real
+    aw = torch.stack(
+        [float(c) * _ipow(mean_w, int(b)) for c, (_, b) in zip(model.f_avg.coeffs, model.f_avg.exps)]
+    )
+    return {"w_pows": w_pows, "cs": cs, "aw": aw}
+
+
+def weight_planes(w_pos: torch.Tensor, w_neg: torch.Tensor, tables: ConvTables) -> dict:
+    """Both phases' planes stacked on a leading phase axis — the weight
+    operands of :func:`fpca_conv_cuda` / :func:`fpca_conv_basis`:
+    ``w_pows (2, 2, N, C)``, ``cs (2, 4, C)``, ``aw (2, T, C)``."""
+    pp = precompute_weight_planes(w_pos.float(), tables.mask, tables.model)
+    pn = precompute_weight_planes(w_neg.float(), tables.mask, tables.model)
+    return {k: torch.stack([pp[k], pn[k]]).contiguous() for k in pp}
+
+
+def fpca_conv_basis(
+    patches: torch.Tensor,
+    planes: dict,
+    tables: ConvTables,
+    bn_offset: torch.Tensor,
+    *,
+    row_valid: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The kernel's math in plain PyTorch: counts ``(M, C)``, float32 and
+    integer-valued.  ``row_valid (M,)`` marks the real rows of a region-skip
+    compacted bucket; rows with 0 come out as exact zeros."""
+    model = tables.model
+    x = patches.float()
+    x2, x3 = x * x, x * x * x
+    xp = {1: x, 2: x2, 3: x3}
+    maskv = tables.mask[:, None]
+    rv = {a: xp[a] @ maskv for a in (1, 2, 3)}                 # (M, 1) each
+    mean_i = rv[1] / tables.n_real
+    a_i = torch.cat([_ipow(mean_i, int(a)) for a, _ in model.f_avg.exps], dim=1)
+    nb = model.n_buckets
+    edges = np.arange(nb, dtype=np.float32) / nb
+    k = model.sharpness
+
+    def one_phase(p: int) -> torch.Tensor:
+        mm = {(a, b): xp[a] @ planes["w_pows"][p, b - 1] for (a, b) in _MM_PAIRS}
+        cs = planes["cs"][p]
+        xg = (a_i @ planes["aw"][p]) / model.v_range           # (M, C)
+        v_pred = torch.zeros_like(xg)
+        for i in range(nb):
+            lo, hi = float(edges[i]), float(edges[i] + 1.0 / nb)
+            gate = torch.sigmoid(k * (xg - lo)) + torch.sigmoid(k * (hi - xg)) - 1.0
+            acc = torch.full_like(xg, float(tables.const[i]))
+            for (a, b), c in tables.by_pair.items():
+                term = cs[b][None, :] if a == 0 else rv[a] if b == 0 else mm[(a, b)]
+                acc = acc + float(c[i]) * term
+            v_pred = v_pred + gate * acc
+        return v_pred
+
+    top = tables.levels - 1
+    up = torch.round(one_phase(0) / tables.lsb).clamp(0, top)
+    down = torch.round(one_phase(1) / tables.lsb).clamp(0, top)
+    counts = (bn_offset.float()[None, :] + up - down).clamp(0, top)
+    if row_valid is not None:
+        counts = counts * row_valid[:, None].float()
+    return counts
+
+
+@functools.cache
+def _launcher() -> ctypes._CFuncPtr:
+    from repro_torch.kernels import _build
+
+    fn = _build.load("fpca_conv").fpca_conv_launch
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
+    if t.device != device or t.dtype != torch.float32 or tuple(t.shape) != shape:
+        raise ValueError(
+            f"{name}: expected float32 {shape} on {device}, "
+            f"got {t.dtype} {tuple(t.shape)} on {t.device}"
+        )
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def fpca_conv_cuda(
+    patches: torch.Tensor,
+    planes: dict,
+    tables: ConvTables,
+    bn_offset: torch.Tensor,
+    *,
+    row_valid: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """FPCA analog conv counts ``(M, C)`` through the CUDA kernel.
+
+    ``patches (M, N)`` float32, ``planes`` from :func:`weight_planes`,
+    ``bn_offset (C,)``, ``row_valid (M,)`` optional.  A CPU ``patches``
+    takes :func:`fpca_conv_basis`; a CUDA one launches the kernel on the
+    current stream, or raises.  Every launch adds one to
+    ``fpca_conv_cuda.launches``.
+    """
+    if patches.device.type == "cpu":
+        return fpca_conv_basis(patches, planes, tables, bn_offset, row_valid=row_valid)
+    dev = patches.device
+    M, N = patches.shape
+    C = bn_offset.shape[0]
+    T = planes["aw"].shape[1]
+    if M < 1:
+        raise ValueError("fpca_conv_cuda needs at least one window row")
+    if N != tables.n_real:
+        raise ValueError(f"patches have {N} pixel slots, the tables {tables.n_real}")
+    _check("patches", patches, (M, N), dev)
+    _check("w_pows", planes["w_pows"], (2, 2, N, C), dev)
+    _check("cs", planes["cs"], (2, 4, C), dev)
+    _check("aw", planes["aw"], (2, T, C), dev)
+    _check("bn_offset", bn_offset, (C,), dev)
+    _check("packed tables", tables.packed, (_P_SIZE,), dev)
+    if row_valid is not None:
+        _check("row_valid", row_valid, (M,), dev)
+    out = torch.empty((M, C), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _launcher()(
+            patches.data_ptr(), planes["w_pows"].data_ptr(), planes["cs"].data_ptr(),
+            planes["aw"].data_ptr(), bn_offset.data_ptr(),
+            None if row_valid is None else row_valid.data_ptr(),
+            tables.packed.data_ptr(), out.data_ptr(),
+            M, N, C, T, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"fpca_conv kernel launch failed with CUDA error {err}")
+    fpca_conv_cuda.launches += 1
+    return out
+
+
+fpca_conv_cuda.launches = 0

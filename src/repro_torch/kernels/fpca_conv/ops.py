@@ -1,0 +1,289 @@
+"""Public wrapper of the fpca_conv kernel: batched images in, SS-ADC
+activation maps out.
+
+``impl="cuda"`` runs the hand-written kernel (:func:`kernel.fpca_conv_cuda`);
+``impl="basis"`` runs the same math in plain PyTorch
+(:func:`kernel.fpca_conv_basis`).  The dense oracle is
+:mod:`repro_torch.kernels.fpca_conv.ref`.
+
+Region skipping (§3.4.5) is compute-real: a per-window keep mask compacts
+the flattened window list into a static bucket of ``m_bucket`` rows before
+the kernel runs, so skipped windows never execute.  Results scatter back to
+the dense ``(B, h_o, w_o, c_o)`` grid with exact zeros in skipped slots;
+kept windows are bit-identical to the dense evaluation because every row of
+the basis-bank math is row-independent.  When the bucket would not shrink
+the matrix (``m_bucket >= M``) the dense fallback runs with a post-hoc zero
+mask instead.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.adc import ADCConfig
+from repro_torch.core.curvefit import BucketCurvefitModel, PolySurface
+from repro_torch.core.fpca_sim import WeightEncoding, encode_weights, extract_windows
+from repro_torch.core.mapping import FPCASpec, output_dims
+from repro_torch.device import resolve_device
+from repro_torch.kernels.fpca_conv.kernel import (
+    ConvTables,
+    conv_tables,
+    fpca_conv_basis,
+    fpca_conv_cuda,
+    weight_planes,
+)
+
+__all__ = [
+    "fpca_conv",
+    "make_fpca_conv_executable",
+    "pad_to_lanes",
+    "freeze_model",
+    "thaw_model",
+    "window_bucket",
+    "StickyBucket",
+]
+
+_LANES = 128
+_IMPLS = {"cuda": fpca_conv_cuda, "basis": fpca_conv_basis}
+
+
+def window_bucket(n_keep: int, m_total: int) -> int:
+    """Static row-bucket size for ``n_keep`` kept windows out of ``m_total``:
+    the next power of two, capped at ``m_total`` (dense fallback there)."""
+    return min(1 << (max(n_keep, 1) - 1).bit_length(), m_total)
+
+
+class StickyBucket:
+    """Cross-call hysteresis on :func:`window_bucket`.
+
+    Growth is immediate (the bucket must hold every kept window); shrinkage
+    waits for ``patience`` consecutive under-full ticks.  ``patience=1``
+    reproduces the stateless behaviour.  ``switches`` counts bucket
+    transitions served, ``shrinks_deferred`` the under-full ticks that kept
+    the larger bucket.  All-skipped ticks launch nothing; callers report
+    them with :meth:`observe_idle` so they advance the shrink streak.
+    """
+
+    def __init__(self, patience: int = 4):
+        if patience < 1:
+            raise ValueError("patience must be >= 1")
+        self.patience = patience
+        self.bucket_size: int | None = None    # bucket currently held
+        self.switches = 0
+        self.shrinks_deferred = 0
+        self._under = 0                        # consecutive under-full ticks
+
+    def observe_idle(self) -> None:
+        """Count an all-skipped tick toward the consecutive-under-full streak."""
+        if self.bucket_size is not None:
+            self._under += 1
+
+    def bucket(self, n_keep: int, m_total: int) -> int:
+        """Bucket to serve this tick's ``n_keep`` kept windows with."""
+        raw = window_bucket(n_keep, m_total)
+        held = self.bucket_size
+        if held is None or raw > held:
+            new = raw
+            self._under = 0
+        elif raw < held:
+            self._under += 1
+            if self._under >= self.patience:
+                new = raw
+                self._under = 0
+            else:
+                new = held
+                self.shrinks_deferred += 1
+        else:
+            new = held
+            self._under = 0
+        if held is not None and new != held:
+            self.switches += 1
+        self.bucket_size = new
+        return new
+
+
+def _tup(x) -> tuple:
+    a = np.asarray(x)
+    return tuple(map(tuple, a.tolist())) if a.ndim > 1 else tuple(a.tolist())
+
+
+def freeze_model(model: BucketCurvefitModel) -> tuple:
+    """Hashable encoding of a fitted model."""
+    d = model.to_dict()
+    return (
+        _tup(d["f_avg_coeffs"]), _tup(d["f_avg_exps"]),
+        _tup(d["bucket_coeffs"]), _tup(d["bucket_exps"]),
+        _tup(d["centers"]), _tup(d["v_centers"]),
+        d["n_pixels"], d["n_sweep"], d["v_range"], d["sharpness"],
+    )
+
+
+def thaw_model(frozen: tuple) -> BucketCurvefitModel:
+    """Inverse of :func:`freeze_model`."""
+    (fa_c, fa_e, b_c, b_e, cen, v_c, n_px, n_sw, v_r, sharp) = frozen
+    return BucketCurvefitModel(
+        f_avg=PolySurface(coeffs=np.asarray(fa_c, np.float32), exps=np.asarray(fa_e, np.int32)),
+        bucket_coeffs=np.asarray(b_c, np.float32),
+        bucket_exps=np.asarray(b_e, np.int32),
+        centers=np.asarray(cen, np.float32),
+        v_centers=np.asarray(v_c, np.float32),
+        n_pixels=int(n_px),
+        n_sweep=int(n_sw),
+        v_range=float(v_r),
+        sharpness=float(sharp),
+    )
+
+
+def pad_to_lanes(
+    x: torch.Tensor, axis: int, lanes: int = _LANES
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Zero-pad ``axis`` to a lane multiple; returns (padded, mask).  The
+    CUDA path does not need it (no 128-lane tiling); kept for layouts that
+    carry the reference's lane padding."""
+    n = x.shape[axis]
+    target = -(-n // lanes) * lanes
+    pad = [0, 0] * x.ndim
+    pad[2 * (x.ndim - 1 - axis % x.ndim) + 1] = target - n
+    mask = torch.cat([torch.ones(n, device=x.device), torch.zeros(target - n, device=x.device)])
+    return F.pad(x, pad), mask
+
+
+def _fpca_conv_impl(
+    images: torch.Tensor,
+    kernel: torch.Tensor,
+    bn_offset: torch.Tensor,
+    window_mask: torch.Tensor | None = None,
+    *,
+    tables: ConvTables,
+    spec: FPCASpec,
+    enc: WeightEncoding,
+    impl: str,
+    m_bucket: int | None = None,
+) -> torch.Tensor:
+    """Encode, extract, compact kept windows, run the kernel, scatter back."""
+    w_pos, w_neg = encode_weights(kernel, spec, enc)              # (c_o, N)
+    patches = extract_windows(images, spec)                       # (B, h_o, w_o, N)
+    B, h_o, w_o, N = patches.shape
+    M = B * h_o * w_o
+    flat = patches.reshape(M, N).contiguous()
+    planes = weight_planes(w_pos.T, w_neg.T, tables)
+
+    idx = row_valid = keep = None
+    if window_mask is not None:
+        if m_bucket is None:
+            raise ValueError("window_mask requires a static m_bucket (see window_bucket())")
+        keep = window_mask.reshape(-1).to(torch.bool)
+        if m_bucket < M:
+            # compact: only kept windows reach the kernel (row-independent
+            # math, so kept rows stay bit-identical to a dense evaluation);
+            # padding rows gather window 0 and come out as exact zeros
+            idx = torch.nonzero_static(keep, size=m_bucket, fill_value=0)[:, 0]
+            n_keep = keep.sum()
+            row_valid = (torch.arange(m_bucket, device=flat.device) < n_keep).float()
+            flat = flat[idx]
+
+    counts = _IMPLS[impl](flat, planes, tables, bn_offset.float().contiguous(), row_valid=row_valid)
+    if keep is not None:
+        if idx is not None:
+            # scatter-add back: padding rows are exact zeros, so the
+            # duplicate fill index 0 adds nothing
+            counts = torch.zeros((M, counts.shape[-1]), device=counts.device).index_add_(0, idx, counts)
+        else:
+            counts = counts * keep[:, None].float()
+    return counts.reshape(B, h_o, w_o, -1)
+
+
+def make_fpca_conv_executable(
+    model: BucketCurvefitModel,
+    *,
+    spec: FPCASpec,
+    adc: ADCConfig | None = None,
+    enc: WeightEncoding | None = None,
+    impl: str = "cuda",
+    m_bucket: int | None = None,
+    device: str | torch.device | None = None,
+) -> Callable:
+    """An ``(images, kernel, bn_offset) -> counts`` executable for ``device``
+    (the card by default).  Its constant tables are built once, here.
+
+    With ``m_bucket`` set it takes ``(images, kernel, bn_offset,
+    window_mask)`` and serves the region-skip compacted path.  CONTRACT:
+    every mask fed to it keeps at most ``m_bucket`` windows — the gather is
+    fixed-size and a busier mask would drop kept windows.
+    """
+    adc = adc or ADCConfig()
+    enc = enc or WeightEncoding()
+    if impl not in _IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; available: {tuple(_IMPLS)}")
+    tables = conv_tables(model, adc, spec.n_active_pixels, resolve_device(device))
+
+    def run(images, kernel, bn_offset, window_mask=None):
+        if (window_mask is None) != (m_bucket is None):
+            raise ValueError("pass window_mask exactly when the executable has an m_bucket")
+        return _fpca_conv_impl(
+            images, kernel, bn_offset, window_mask,
+            tables=tables, spec=spec, enc=enc, impl=impl, m_bucket=m_bucket,
+        )
+
+    return run
+
+
+def fpca_conv(
+    images: torch.Tensor,
+    kernel: torch.Tensor,
+    model: BucketCurvefitModel,
+    *,
+    spec: FPCASpec,
+    adc: ADCConfig | None = None,
+    enc: WeightEncoding | None = None,
+    bn_offset: torch.Tensor | None = None,
+    impl: str = "cuda",
+    window_mask: torch.Tensor | np.ndarray | None = None,
+    m_bucket: int | None = None,
+) -> torch.Tensor:
+    """FPCA frontend activations for a batch of images, on their device.
+
+    Args:
+      images: ``(B, H, W, c_i)`` float in [0, 1].
+      kernel: ``(c_o, k, k, c_i)`` float weights.
+      model:  fitted bucket model for ``spec.n_active_pixels``.
+      impl:   ``"cuda"`` (the kernel; its plain version for CPU tensors) or
+              ``"basis"`` (the plain version).
+      window_mask: optional ``(B, h_o, w_o)`` (or flat) keep mask; skipped
+              slots return exact zeros, an all-skipped mask launches nothing.
+      m_bucket: compacted-row bucket; defaults to :func:`window_bucket` of
+              the mask's kept count.
+
+    Returns:
+      SS-ADC counts, ``(B, h_o, w_o, c_o)`` float32 (integer-valued).
+    """
+    c_o = kernel.shape[0]
+    dev = images.device
+    if bn_offset is None:
+        bn_offset = torch.zeros(c_o, device=dev)
+    if window_mask is None:
+        m_bucket = None
+    else:
+        keep_np = np.asarray(torch.as_tensor(window_mask).cpu())
+        n_keep = int(np.count_nonzero(keep_np))
+        if n_keep == 0:
+            h_o, w_o = output_dims(spec)
+            return torch.zeros((images.shape[0], h_o, w_o, c_o), device=dev)
+        if m_bucket is None:
+            m_bucket = window_bucket(n_keep, keep_np.size)
+        elif n_keep > m_bucket:
+            raise ValueError(
+                f"mask keeps {n_keep} windows > m_bucket {m_bucket}; the "
+                "fixed-size gather would silently drop kept windows"
+            )
+        window_mask = torch.as_tensor(keep_np, device=dev)
+    run = make_fpca_conv_executable(
+        model, spec=spec, adc=adc, enc=enc, impl=impl, m_bucket=m_bucket, device=dev
+    )
+    if window_mask is None:
+        return run(images, kernel, bn_offset)
+    return run(images, kernel, bn_offset, window_mask)
