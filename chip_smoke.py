@@ -14,7 +14,21 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  In order it
    all-skipped request; counts the kernel launches of that run;
 6. holds each kernel of the path against its plain PyTorch version on the
    card, and the served counts and logits against the dense oracle;
-7. times each kernel, its plain version and its bound.
+7. times each kernel, its plain version and its bound;
+
+then the language-model serving path (``repro_torch.launch.serve``):
+
+8. initialises zamba2-7b at full width (d_model 3584, 81 Mamba2 layers, one
+   shared attention block applied 13 times) in bf16 on the card from a
+   seeded CUDA generator;
+9. serves 8 requests of 4096 random tokens in waves of 4, 32 greedy tokens
+   each, and checks the launch counts: 13 flash-attention and 81 SSD
+   launches per prefill, none in decode; tokens in range, logits finite;
+10. holds the port's kernel path against its plain versions on the host on
+   the narrow smoke config (f32), and each LM kernel against its plain
+   version at the served shapes, on inputs captured from a served prefill;
+11. times each LM kernel, its plain version, its bound and the library call
+   that computes the same function, and profiles one prefill.
 
 It prints one JSON line ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {...}}``; a failed phase exits non-zero before
@@ -23,6 +37,7 @@ that line, as does a host with no CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -48,13 +63,36 @@ from repro_torch.kernels.fpca_conv.kernel import (  # noqa: E402
     fpca_conv_cuda,
     weight_planes,
 )
+from repro_torch.configs import ARCHS, reduce_for_smoke  # noqa: E402
+from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda  # noqa: E402
+from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_cuda  # noqa: E402
+from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref  # noqa: E402
+from repro_torch.launch.serve import serve  # noqa: E402
+from repro_torch.models.attention import attend_blockwise  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models.transformer import forward_decode, forward_prefill, init_model  # noqa: E402
 
 SEED = 0
 BATCHES = (1, 64, 256)
-# NVIDIA H100 SXM data-sheet peaks: HBM3 bandwidth and non-tensor fp32 rate
+# NVIDIA H100 SXM data-sheet peaks: HBM3 bandwidth, non-tensor fp32 rate,
+# dense bf16 tensor-core rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
+PEAK_BF16_FLOP_PER_S = 989e12
 COUNT_TOL, FLIP_TOL = 1.0, 0.05   # <= 1 ADC count, < 5% of counts off
+
+# LM serving path: zamba2-7b at full width, 8 requests of 4096 tokens in
+# waves of 4, 32 greedy tokens each
+LM_ARCH, LM_REQUESTS, LM_BATCH, LM_PROMPT, LM_TOKENS = "zamba2-7b", 8, 4, 4096, 32
+# Kernel vs plain version on the card.  Flash (bf16): both sides compute in
+# f32 and round the output once to bf16, so they may differ by one bf16 ulp
+# (<= 2**-7 of the value) plus f32 noise.  SSD (f32): sums of up to 128
+# products in another order, max|diff| <= 2e-5 of max|value|.
+FLASH_RTOL, FLASH_ATOL, SSD_NORMWISE = 2.0**-7, 1e-4, 2e-5
+# port on the card vs port on the host, smoke config in f32 (sums in
+# another order through 3 layers)
+SMOKE_TOL = 1e-4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -236,7 +274,7 @@ def main() -> None:
         for row in rows:
             print(f"  {row}")
 
-    kernels = [{
+    fpca_entry = {
         "name": "fpca_conv",
         "route": "cuda",
         "source": "src/repro_torch/csrc/fpca_conv.cu",
@@ -249,7 +287,8 @@ def main() -> None:
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         # no single PyTorch call computes the bucket-gated basis bank
         "library_ms": None,
-    }]
+    }
+    kernels = [fpca_entry] + lm_phase(dev, smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
@@ -258,11 +297,17 @@ def main() -> None:
 def profile_request(model, x: torch.Tensor) -> tuple[float, list[str]]:
     """Device milliseconds of one ``run`` and its split by kernel name
     (torch.profiler over 5 runs), top 8."""
+    return profile_device(lambda: model.run(x), runs=5)
+
+
+def profile_device(fn, runs: int) -> tuple[float, list[str]]:
+    """Device milliseconds per call of ``fn`` and its split by kernel name
+    (torch.profiler over ``runs`` calls), top 8."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            model.run(x)
+        for _ in range(runs):
+            fn()
         torch.cuda.synchronize()
     # device-side events only (kernels, memcpy/memset), not the host ops that launch them
     events = [e for e in prof.key_averages()
@@ -271,10 +316,224 @@ def profile_request(model, x: torch.Tensor) -> tuple[float, list[str]]:
         return float("nan"), ["torch.profiler recorded no device time"]
     events.sort(key=lambda e: e.device_time_total, reverse=True)
     total = sum(e.device_time_total for e in events)
-    return total / 5 / 1e3, [
-        f"{e.key[:60]:60s} {e.device_time_total / 5 / 1e3:.4f} ms/run "
-        f"({100 * e.device_time_total / total:.1f}%) x{e.count // 5}" for e in events[:8]
+    return total / runs / 1e3, [f"{sum(e.count for e in events) / runs:.0f} device ops per run"] + [
+        f"{e.key[:60]:60s} {e.device_time_total / runs / 1e3:.4f} ms/run "
+        f"({100 * e.device_time_total / total:.1f}%) x{e.count // runs}" for e in events[:8]
     ]
+
+
+# ---------------------------------------------------------------------------
+# the language-model serving path
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def capture_first_calls():
+    """Record the inputs of the first flash-attention and first SSD
+    intra-chunk call of a run (through the module attributes the model
+    looks up at call time); yields the dict they land in."""
+    seen: dict = {}
+    chunked = ssd_ops.ssd_chunked
+
+    def flash_hook(q, k, v, **kw):
+        seen.setdefault("flash", (q, k, v, kw))
+        return flash_attention_cuda(q, k, v, **kw)
+
+    def intra_hook(xbar, Bh, Ch, cum):
+        seen.setdefault("ssd", (xbar, Bh, Ch, cum))
+        return ssd_intra_chunk_cuda(xbar, Bh, Ch, cum)
+
+    def chunked_hook(*args, **kw):
+        return chunked(*args, intra_chunk=intra_hook, **kw)
+
+    transformer.flash_attention_cuda, ssd_ops.ssd_chunked = flash_hook, chunked_hook
+    try:
+        yield seen
+    finally:
+        transformer.flash_attention_cuda, ssd_ops.ssd_chunked = flash_attention_cuda, chunked
+
+
+def _to(tree: dict, dev: torch.device) -> dict:
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+
+def live_pairs(sq: int, sk: int, causal: bool, window: int | None) -> int:
+    """(query, key) pairs the attention mask keeps."""
+    i = np.arange(sq)
+    hi = np.minimum(i, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(i - window + 1, 0) if window is not None else np.zeros(sq, np.int64)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def lm_phase(dev: torch.device, smi: str) -> list[dict]:
+    """Serve zamba2-7b at full width; check and time its two kernels."""
+    # ---- 10a. the kernel path against the host's plain path, smoke config ----
+    small = reduce_for_smoke(ARCHS[LM_ARCH])
+    host = init_model(small, generator=torch.Generator().manual_seed(SEED), device="cpu")
+    card = _to(host, dev)
+    toks = torch.as_tensor(np.random.default_rng(SEED).integers(0, small.vocab_size, (2, 200)))
+    l_card, c_card = forward_prefill(card, small, toks.to(dev), max_len=208)
+    l_host, c_host = forward_prefill(host, small, toks, max_len=208)
+    nxt = l_host.argmax(-1, keepdim=True)
+    d_card, _ = forward_decode(card, small, nxt.to(dev), c_card, 200)
+    d_host, _ = forward_decode(host, small, nxt, c_host, 200)
+    err_p = float((l_card.cpu() - l_host).abs().max())
+    err_d = float((d_card.cpu() - d_host).abs().max())
+    print(f"smoke {LM_ARCH} (f32, 3 layers) card kernels vs host plain: prefill max|Δlogit| {err_p:.2e}, "
+          f"decode {err_d:.2e}")
+    check(err_p <= SMOKE_TOL and err_d <= SMOKE_TOL, "smoke LM on the card disagrees with the host")
+    del card, c_card
+
+    # ---- 8. init at full width ---------------------------------------------
+    cfg = ARCHS[LM_ARCH]
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = init_model(cfg, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"{LM_ARCH} init on the card: {time.perf_counter() - t0:.2f} s, {n_params:,} parameters "
+          f"(analytic count without norms and biases {cfg.param_count():,}), {cfg.dtype}, "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    check(cfg.d_model == 3584 and cfg.n_layers == 81, "zamba2-7b is served at full width")
+    prompts = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (LM_REQUESTS, LM_PROMPT))
+
+    # warm-up prefill (first-call costs out of the timing) that captures one
+    # attention application's q/k/v and one Mamba2 layer's SSD inputs
+    with capture_first_calls() as seen:
+        logits, _cache = forward_prefill(params, cfg, torch.as_tensor(prompts[:LM_BATCH], device=dev))
+        torch.cuda.synchronize()
+    del logits, _cache
+
+    # ---- 9. the main path, with the launch counts ----------------------------
+    torch.cuda.reset_peak_memory_stats(dev)
+    flash_attention_cuda.launches = 0
+    ssd_intra_chunk_cuda.launches = 0
+    res = serve(params, cfg, prompts, batch=LM_BATCH, tokens=LM_TOKENS, device=dev)
+    launches = {"flash_attention": flash_attention_cuda.launches,
+                "ssd_intra_chunk": ssd_intra_chunk_cuda.launches}
+    for i, p_ms in enumerate(res["prefill_ms"]):
+        print(f"wave {i}: prefill {p_ms:.1f} ms ({LM_BATCH}x{LM_PROMPT} tokens), {LM_TOKENS - 1} decode steps "
+              f"{res['decode_ms'][i]:.1f} ms, launches (flash, ssd) per prefill {res['prefill_launches'][i]}, "
+              f"in decode {res['decode_launches'][i]}")
+    print(f"served {LM_REQUESTS} requests x {LM_TOKENS} tokens on {smi}: decode {res['decode_tok_s']:.1f} tok/s, "
+          f"end to end {res['e2e_tok_s']:.1f} tok/s, max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; launches {launches}")
+    n_groups = cfg.n_layers // cfg.hybrid_attn_period
+    for i in range(len(res["prefill_ms"])):
+        check(res["prefill_launches"][i] == (n_groups, cfg.n_layers),
+              f"wave {i}: (flash, ssd) launches per prefill {res['prefill_launches'][i]}, "
+              f"expected ({n_groups}, {cfg.n_layers})")
+        check(res["decode_launches"][i] == (0, 0), f"wave {i}: kernel launches in decode")
+    seqs = res["sequences"]
+    check(seqs.shape == (LM_REQUESTS, LM_TOKENS), f"sequences {seqs.shape}")
+    check(int(seqs.min()) >= 0 and int(seqs.max()) < cfg.vocab_size, "generated tokens out of range")
+    check(res["finite"], "non-finite logits")
+
+    # ---- 10b. each kernel against its plain version at the served shapes ----
+    q, k, v, kw = seen["flash"]
+    got = flash_attention_cuda(q, k, v, causal=kw["causal"], window=kw["window"])
+    want = attend_blockwise(q, k, v, causal=kw["causal"], window=kw["window"])
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    flash_err = float(diff.max())
+    flash_ok = bool((diff <= FLASH_ATOL + FLASH_RTOL * want.float().abs()).all())
+    print(f"flash kernel vs plain blockwise at q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype}: "
+          f"max|Δ| {flash_err:.3e}")
+    check(flash_ok, "flash kernel disagrees with its plain version beyond one bf16 ulp")
+    del got, want, diff
+    xbar, Bh, Ch, cum = seen["ssd"]
+    y, st, dec = ssd_intra_chunk_cuda(xbar, Bh, Ch, cum)
+    y_r, st_r, dec_r = ssd_intra_chunk_ref(xbar, Bh, Ch, cum)
+    torch.cuda.synchronize()
+    ssd_err = max(float((y - y_r).abs().max()), float((st - st_r).abs().max()))
+    rel = max(float((y - y_r).abs().max()) / float(y_r.abs().max()),
+              float((st - st_r).abs().max()) / float(st_r.abs().max()))
+    print(f"ssd kernel vs plain at xbar {tuple(xbar.shape)}, B/C head stride {Bh.stride(3)}: "
+          f"max|Δ| {ssd_err:.3e}, normwise {rel:.2e}")
+    check(rel <= SSD_NORMWISE and torch.equal(dec, dec_r), "ssd kernel disagrees with its plain version")
+    del y, st, dec, y_r, st_r, dec_r
+
+    # ---- 11. timings, bounds, library yardstick, profile ----------------------
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    flash_ms = time_cuda(lambda: flash_attention_cuda(q, k, v, causal=kw["causal"], window=kw["window"]))
+    flash_plain_ms = time_cuda(lambda: attend_blockwise(q, k, v, causal=kw["causal"], window=kw["window"]),
+                               iters=5)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa_ms = time_cuda(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=H != KV))
+    f_bytes = q.element_size() * (2 * B * Sq * H * D + 2 * B * Sk * KV * D)
+    f_ops = 4 * D * B * H * live_pairs(Sq, Sk, kw["causal"], kw["window"])
+    f_tb, f_to = f_bytes / PEAK_BYTES_PER_S * 1e3, f_ops / PEAK_BF16_FLOP_PER_S * 1e3
+    print(f"flash at B={B} S={Sq} H={H} KV={KV} D={D} {q.dtype} on {smi}: kernel {flash_ms:.4f} ms, plain "
+          f"{flash_plain_ms:.4f} ms, sdpa {sdpa_ms:.4f} ms, bound {max(f_tb, f_to):.4f} ms "
+          f"(bytes {f_tb:.4f}, bf16 ops {f_to:.4f})")
+
+    b, nc, Q, Hs, P = xbar.shape
+    N, G = Bh.shape[-1], cfg.ssm_groups
+    ssd_ms = time_cuda(lambda: ssd_intra_chunk_cuda(xbar, Bh, Ch, cum))
+    ssd_plain_ms = time_cuda(lambda: ssd_intra_chunk_ref(xbar, Bh, Ch, cum), iters=5)
+    s_bytes = 4 * (2 * b * nc * Q * Hs * P + b * nc * Q * Hs + 2 * b * nc * Q * G * N + b * nc * Hs * P * N)
+    # cb = C Bᵀ and (cb∘L) xbar need only the causal j <= i half (Q(Q+1)/2
+    # pairs, 2 flops each per N or P); the chunk state is a full Q-term product
+    s_ops = b * nc * Hs * (Q * (Q + 1) * N + Q * (Q + 1) * P + 2 * Q * N * P)
+    s_tb, s_to = s_bytes / PEAK_BYTES_PER_S * 1e3, s_ops / PEAK_FP32_FLOP_PER_S * 1e3
+    print(f"ssd at b={b} nc={nc} Q={Q} H={Hs} P={P} N={N} G={G} on {smi}: kernel {ssd_ms:.4f} ms, plain "
+          f"{ssd_plain_ms:.4f} ms, bound {max(s_tb, s_to):.4f} ms (bytes {s_tb:.4f}, fp32 ops {s_to:.4f})")
+    del seen, q, k, v, qt, kt, vt, xbar, Bh, Ch, cum
+
+    toks = torch.as_tensor(prompts[:LM_BATCH], device=dev)
+    out: list = []
+    device_ms, rows = profile_device(lambda: out.append(forward_prefill(params, cfg, toks, max_len=LM_PROMPT + 8)),
+                                     runs=1)
+    prefill_ms = statistics.median(res["prefill_ms"])
+    print(f"profile one prefill: device time {device_ms:.1f} ms, busy {device_ms / prefill_ms:.1%} of the "
+          f"median served prefill ({prefill_ms:.1f} ms)")
+    for row in rows:
+        print(f"  {row}")
+    logits, cache = out.pop()
+    nxt = logits.argmax(-1, keepdim=True)
+    device_ms, rows = profile_device(lambda: forward_decode(params, cfg, nxt, cache, LM_PROMPT), runs=3)
+    step_ms = statistics.median(res["decode_ms"]) / (LM_TOKENS - 1)
+    print(f"profile one decode step: device time {device_ms:.2f} ms, busy {device_ms / step_ms:.1%} of the "
+          f"mean served decode step ({step_ms:.2f} ms)")
+    for row in rows:
+        print(f"  {row}")
+
+    return [
+        {
+            "name": "flash_attention",
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:33",
+            "launches": launches["flash_attention"],
+            "max_abs_err": flash_err,
+            "ms": flash_ms,
+            "plain_ms": flash_plain_ms,
+            "bound_ms": max(f_tb, f_to),
+            "bound_by": "bytes" if f_tb >= f_to else "operations",
+            "library_ms": sdpa_ms,
+        },
+        {
+            "name": "ssd_intra_chunk",
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_intra_chunk.cu",
+            "replaces": "src/repro/kernels/ssd/kernel.py:29",
+            "launches": launches["ssd_intra_chunk"],
+            "max_abs_err": ssd_err,
+            "ms": ssd_ms,
+            "plain_ms": ssd_plain_ms,
+            "bound_ms": max(s_tb, s_to),
+            "bound_by": "bytes" if s_tb >= s_to else "operations",
+            # no single PyTorch call computes the masked intra-chunk contraction
+            "library_ms": None,
+        },
+    ]
+
+
+def _leaves(tree: dict):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
 if __name__ == "__main__":

@@ -7,6 +7,7 @@ The reference's objects export plain numpy (``BucketCurvefitModel.to_dict()``,
     head = head_params_from_numpy([{k: np.asarray(v) for k, v in p.items()}
                                    for p in ref_head_params])
     kernel = tensor_from_numpy(np.asarray(ref_kernel))   # on the card by default
+    lm = lm_params_from_numpy(jax.tree.map(np.asarray, ref_lm_params))
 
 Both sides then compute on the same numbers; random streams are never
 compared.
@@ -22,7 +23,12 @@ import torch
 from repro_torch.core.curvefit import BucketCurvefitModel
 from repro_torch.device import resolve_device
 
-__all__ = ["bucket_model_from_dict", "head_params_from_numpy", "tensor_from_numpy"]
+__all__ = [
+    "bucket_model_from_dict",
+    "head_params_from_numpy",
+    "lm_params_from_numpy",
+    "tensor_from_numpy",
+]
 
 
 def bucket_model_from_dict(d: dict) -> BucketCurvefitModel:
@@ -44,3 +50,27 @@ def head_params_from_numpy(
     ``(c_out, k, k, c_in)`` conv weights."""
     dev = resolve_device(device)
     return [{k: tensor_from_numpy(v, device=dev) for k, v in dict(p).items()} for p in params]
+
+
+def _leaf_from_numpy(a: Any, dev: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":   # ml_dtypes' bfloat16: same bits as torch's
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(a.copy()).to(dev)
+
+
+def lm_params_from_numpy(tree: dict, *, device: str | torch.device | None = None) -> dict:
+    """A language model's params from the reference's ``init_model`` pytree
+    given as nested dicts of numpy arrays.  The port keeps the reference's
+    layout and dtypes, so this is a leaf-by-leaf copy: for the hybrid
+    family ``mamba_main`` leaves stay stacked ``(n_groups, period, ...)``,
+    ``mamba_tail`` leaves ``(n_tail, ...)``, and ``shared_attn`` is one
+    block."""
+    dev = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return _leaf_from_numpy(node, dev)
+
+    return conv(tree)

@@ -1,0 +1,95 @@
+"""Mamba2 SSD intra-chunk piece: the CUDA kernel's wrapper.
+
+:func:`ssd_intra_chunk_cuda` launches the hand-written kernel in
+``csrc/ssd_intra_chunk.cu`` on CUDA tensors; on CPU tensors it takes the
+plain PyTorch version :func:`ref.ssd_intra_chunk_ref`.  Both keep the
+contract of ``ssd_intra_chunk``: ``(y_intra, states (b,nc,h,p,n),
+chunk_decay)``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref
+
+__all__ = ["ssd_intra_chunk_cuda", "MAX_CHUNK", "MAX_DIM"]
+
+MAX_CHUNK = 128   # chunk positions per block
+MAX_DIM = 128     # head channels P and state channels N
+
+
+@functools.cache
+def _launcher() -> ctypes._CFuncPtr:
+    from repro_torch.kernels import _build
+
+    fn = _build.load("ssd_intra_chunk").ssd_intra_chunk_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(xbar: torch.Tensor, Bh: torch.Tensor, Ch: torch.Tensor, cum: torch.Tensor) -> None:
+    if xbar.dim() != 5 or Bh.dim() != 5 or Ch.shape != Bh.shape:
+        raise ValueError(
+            f"expected xbar (b,nc,q,h,p) and Bh, Ch (b,nc,q,h,n), got {tuple(xbar.shape)}, "
+            f"{tuple(Bh.shape)}, {tuple(Ch.shape)}"
+        )
+    b, nc, q, h, p = xbar.shape
+    n = Bh.shape[-1]
+    if tuple(Bh.shape[:4]) != (b, nc, q, h) or tuple(cum.shape) != (b, nc, q, h):
+        raise ValueError(
+            f"Bh {tuple(Bh.shape)} / cum {tuple(cum.shape)} do not match xbar {tuple(xbar.shape)}"
+        )
+    if min(b, nc, h) < 1 or not 1 <= q <= MAX_CHUNK or not (1 <= p <= MAX_DIM and 1 <= n <= MAX_DIM):
+        raise ValueError(f"need q <= {MAX_CHUNK} and p, n <= {MAX_DIM}, got q={q}, p={p}, n={n}")
+    for name, t in (("xbar", xbar), ("Bh", Bh), ("Ch", Ch), ("cum", cum)):
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {t.dtype}")
+        if t.device != xbar.device or t.device.type != "cuda":
+            raise ValueError(f"{name} must lie on xbar's CUDA device, got {t.device}")
+    if not (xbar.is_contiguous() and cum.is_contiguous()):
+        raise ValueError("xbar and cum must be contiguous")
+    for name, t in (("Bh", Bh), ("Ch", Ch)):
+        if t.stride(4) != 1:
+            raise ValueError(f"{name} needs a unit-stride state dim, got strides {t.stride()}")
+
+
+def ssd_intra_chunk_cuda(
+    xbar: torch.Tensor, Bh: torch.Tensor, Ch: torch.Tensor, cum: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Intra-chunk SSD through the CUDA kernel.
+
+    xbar ``(b,nc,q,h,p)`` and cum ``(b,nc,q,h)`` contiguous float32; Bh/Ch
+    ``(b,nc,q,h,n)`` float32 with any strides whose state dim is unit-stride
+    (a head stride of 0 broadcasts one group over the heads without a
+    copy).  Returns ``(y_intra (b,nc,q,h,p), states (b,nc,h,p,n),
+    chunk_decay (b,nc,h))``.  A CPU ``xbar`` takes
+    :func:`ssd_intra_chunk_ref`; a CUDA one launches the kernel on the
+    current stream, or raises.  Every launch adds one to
+    ``ssd_intra_chunk_cuda.launches``.
+    """
+    if xbar.device.type == "cpu":
+        return ssd_intra_chunk_ref(xbar, Bh, Ch, cum)
+    _check(xbar, Bh, Ch, cum)
+    b, nc, q, h, p = xbar.shape
+    n = Bh.shape[-1]
+    y = torch.empty_like(xbar)
+    states = torch.empty((b, nc, h, p, n), dtype=torch.float32, device=xbar.device)
+    with torch.cuda.device(xbar.device):
+        err = _launcher()(
+            xbar.data_ptr(), Bh.data_ptr(), Ch.data_ptr(), cum.data_ptr(),
+            y.data_ptr(), states.data_ptr(), b, nc, q, h, p, n,
+            *Bh.stride()[:4], *Ch.stride()[:4],
+            torch.cuda.current_stream(xbar.device).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"ssd_intra_chunk kernel launch failed with CUDA error {err}")
+    ssd_intra_chunk_cuda.launches += 1
+    return y, states, torch.exp(cum[:, :, -1, :])
+
+
+ssd_intra_chunk_cuda.launches = 0

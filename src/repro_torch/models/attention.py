@@ -1,0 +1,176 @@
+"""Attention: GQA + RoPE + optional qk-norm + optional sliding window.
+
+Three paths share one set of projection weights:
+
+* ``attend_full``      — einsum + masked softmax; the plain version of the
+                         flash kernel for S <= 2048;
+* ``attend_blockwise`` — online-softmax loop over key blocks, forward only;
+                         memory O(S * block) — the plain version for longer
+                         sequences;
+* ``attend_decode``    — single-query attention against a KV cache.
+
+The model's prefill calls :func:`repro_torch.kernels.flash_attention.kernel.flash_attention_cuda`,
+which launches the CUDA kernel on the card and takes these on the host.
+
+Layouts: q (B, S, H, D), k/v (B, S, KV, D); GQA groups G = H // KV are an
+explicit axis in the score einsums.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.models.layers import init_dense, init_rms_norm, rms_norm, rope
+
+__all__ = [
+    "init_attention",
+    "attend_full",
+    "attend_blockwise",
+    "attend_decode",
+]
+
+NEG_INF = -1e30
+
+
+def init_attention(
+    d_model: int,
+    n_heads: int,
+    n_kv_heads: int,
+    head_dim: int,
+    *,
+    qk_norm: bool = False,
+    dtype: torch.dtype = torch.bfloat16,
+    generator: torch.Generator | None = None,
+    device: str | torch.device | None = None,
+) -> dict:
+    kw = dict(dtype=dtype, generator=generator, device=device)
+    p = {
+        "wq": init_dense(d_model, n_heads * head_dim, **kw),
+        "wk": init_dense(d_model, n_kv_heads * head_dim, **kw),
+        "wv": init_dense(d_model, n_kv_heads * head_dim, **kw),
+        "wo": init_dense(n_heads * head_dim, d_model, **kw),
+    }
+    if qk_norm:
+        p["q_norm"] = init_rms_norm(head_dim, device=device)
+        p["k_norm"] = init_rms_norm(head_dim, device=device)
+    return p
+
+
+def _project_qkv(
+    params: dict, x: torch.Tensor, positions: torch.Tensor, cfg: Any
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    B, S, _ = x.shape
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ params["wq"]["w"]).reshape(B, S, H, D)
+    k = (x @ params["wk"]["w"]).reshape(B, S, KV, D)
+    v = (x @ params["wv"]["w"]).reshape(B, S, KV, D)
+    if "q_norm" in params:
+        q = rms_norm(params["q_norm"], q)
+        k = rms_norm(params["k_norm"], k)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _grouped(q: torch.Tensor, kv_heads: int) -> torch.Tensor:
+    """(B, S, H, D) -> (B, S, KV, G, D)."""
+    B, S, H, D = q.shape
+    return q.reshape(B, S, kv_heads, H // kv_heads, D)
+
+
+def attend_full(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+) -> torch.Tensor:
+    """Masked softmax attention. q (B,Sq,H,D), k/v (B,Sk,KV,D) -> (B,Sq,H,D).
+    Scores and softmax in f32; the probabilities are cast to v's dtype for
+    the second product, as the reference does."""
+    B, Sq, H, D = q.shape
+    KV, Sk = k.shape[2], k.shape[1]
+    qg = _grouped(q, KV)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * D**-0.5
+    pos_q = torch.arange(Sq, device=q.device)[:, None]
+    pos_k = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= pos_q >= pos_k
+    if window is not None:
+        mask &= pos_q - pos_k < window
+    probs = torch.softmax(scores.masked_fill(~mask, NEG_INF), dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype), v)
+    return out.reshape(B, Sq, H, D)
+
+
+def attend_blockwise(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    block_k: int = 512,
+) -> torch.Tensor:
+    """Flash attention forward in plain PyTorch: the math of the flash
+    kernel (online softmax over key blocks, f32 throughout, output in q's
+    dtype), memory O(Sq * block_k).  The reference pads keys to whole
+    blocks and masks the padding; slicing the ragged last block is the same
+    sum.  Its backward, and the LSE it needs, come with the training path."""
+    B, Sq, H, D = q.shape
+    KV, Sk = k.shape[2], k.shape[1]
+    G = H // KV
+    scale = D**-0.5
+    qg = _grouped(q, KV).float()
+    pos_q = torch.arange(Sq, device=q.device)[:, None]
+    m = torch.full((B, KV, G, Sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, KV, G, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, KV, G, Sq, D), dtype=torch.float32, device=q.device)
+    for k0 in range(0, Sk, block_k):
+        k_blk = k[:, k0 : k0 + block_k].float()
+        v_blk = v[:, k0 : k0 + block_k].float()
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_blk) * scale
+        pos_k = k0 + torch.arange(k_blk.shape[1], device=q.device)[None, :]
+        mask = torch.ones((Sq, k_blk.shape[1]), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= pos_q >= pos_k
+        if window is not None:
+            mask &= pos_q - pos_k < window
+        s = s.masked_fill(~mask, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p, v_blk)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+
+
+def attend_decode(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    cache_len: torch.Tensor,
+    *,
+    window: int | None = None,
+) -> torch.Tensor:
+    """Single-step attention against a cache. q (B,1,H,D), caches
+    (B,Smax,KV,D); ``cache_len`` (B,) counts the valid entries, the new
+    token's included."""
+    B, _, H, D = q.shape
+    KV = k_cache.shape[2]
+    qg = _grouped(q, KV).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_cache.float()) * D**-0.5
+    pos_k = torch.arange(k_cache.shape[1], device=q.device)[None, :]
+    mask = pos_k < cache_len[:, None]
+    if window is not None:
+        mask &= pos_k >= cache_len[:, None] - window
+    s = s.masked_fill(~mask[:, None, None, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v_cache.float())
+    return out.reshape(B, 1, H, D).to(q.dtype)

@@ -1,9 +1,14 @@
-"""Small-CNN building blocks: the digital head behind an FPCA frontend.
+"""Building blocks: the small-CNN head behind an FPCA frontend, and the
+language-model layers.
 
 Plain functions on tensors, parameters in dicts.  Layouts are the
 reference's: NHWC activations, ``(c_out, k, k, c_in)`` conv kernels and
-``(d_in, d_out)`` dense weights.  Everything is float32; convolutions run
-with TF32 off, so "f32" means IEEE f32 on the card as on the host.
+``(d_in, d_out)`` dense weights.  The CNN half is float32; convolutions run
+with TF32 off, so "f32" means IEEE f32 on the card as on the host.  The LM
+half computes in the config's dtype (bf16 at full width), with norms, RoPE
+and logits in f32.  Its init functions draw on ``device`` from
+``generator``, which must live on that device, in the requested dtype: a
+full-width model is drawn on the card without a host round trip.
 """
 
 from __future__ import annotations
@@ -13,7 +18,25 @@ import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 
-__all__ = ["init_conv2d", "conv2d", "init_linear", "linear", "max_pool2d", "avg_pool2d"]
+__all__ = [
+    "init_conv2d",
+    "conv2d",
+    "init_linear",
+    "linear",
+    "max_pool2d",
+    "avg_pool2d",
+    "torch_dtype",
+    "init_rms_norm",
+    "rms_norm",
+    "init_dense",
+    "dense",
+    "init_swiglu",
+    "swiglu",
+    "init_embedding",
+    "embed",
+    "unembed",
+    "rope",
+]
 
 
 def init_conv2d(
@@ -82,3 +105,105 @@ def max_pool2d(x: torch.Tensor, size: int, stride: int | None = None) -> torch.T
 def avg_pool2d(x: torch.Tensor, size: int, stride: int | None = None) -> torch.Tensor:
     s = size if stride is None else stride
     return F.avg_pool2d(x.permute(0, 3, 1, 2), size, s).permute(0, 2, 3, 1)
+
+
+# ---------------------------------------------------------------------------
+# Language-model layers.  ``lead`` prepends stacking axes to every parameter
+# (layers drawn in one call, as the reference vmaps its inits).
+# ---------------------------------------------------------------------------
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """``"bfloat16"`` -> ``torch.bfloat16`` (a config's dtype string)."""
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dt
+
+
+def _normal(shape: tuple, scale: float, dtype: torch.dtype, generator, device) -> torch.Tensor:
+    dev = resolve_device(device)
+    return torch.randn(shape, generator=generator, device=dev, dtype=dtype).mul_(scale)
+
+
+def init_rms_norm(
+    d: int, *, lead: tuple = (), device: str | torch.device | None = None
+) -> dict:
+    return {"scale": torch.ones(lead + (d,), device=resolve_device(device))}
+
+
+def rms_norm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Computed in f32, cast back to ``x``'s dtype."""
+    x32 = x.float()
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps)
+    return (out * params["scale"].float()).to(x.dtype)
+
+
+def init_dense(
+    d_in: int,
+    d_out: int,
+    *,
+    dtype: torch.dtype = torch.bfloat16,
+    lead: tuple = (),
+    generator: torch.Generator | None = None,
+    device: str | torch.device | None = None,
+) -> dict:
+    """Bias-free dense params: ``w`` is ``(d_in, d_out)``."""
+    return {"w": _normal(lead + (d_in, d_out), d_in**-0.5, dtype, generator, device)}
+
+
+def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
+    return x @ params["w"]
+
+
+def init_swiglu(
+    d: int,
+    d_ff: int,
+    *,
+    dtype: torch.dtype = torch.bfloat16,
+    generator: torch.Generator | None = None,
+    device: str | torch.device | None = None,
+) -> dict:
+    kw = dict(dtype=dtype, generator=generator, device=device)
+    return {
+        "gate": init_dense(d, d_ff, **kw),
+        "up": init_dense(d, d_ff, **kw),
+        "down": init_dense(d_ff, d, **kw),
+    }
+
+
+def swiglu(params: dict, x: torch.Tensor) -> torch.Tensor:
+    return dense(params["down"], F.silu(dense(params["gate"], x)) * dense(params["up"], x))
+
+
+def init_embedding(
+    vocab: int,
+    d: int,
+    *,
+    dtype: torch.dtype = torch.bfloat16,
+    generator: torch.Generator | None = None,
+    device: str | torch.device | None = None,
+) -> dict:
+    return {"table": _normal((vocab, d), 0.02, dtype, generator, device)}
+
+
+def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    return params["table"][tokens]
+
+
+def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Logits in f32."""
+    return (x @ params["table"].T.to(x.dtype)).float()
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4) -> torch.Tensor:
+    """Rotary embedding, computed in f32 and cast back.  x: (..., S, H, D),
+    positions: broadcastable to (..., S)."""
+    half = x.shape[-1] // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    angles = positions.to(device=x.device, dtype=torch.float32)[..., None] * freqs
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)

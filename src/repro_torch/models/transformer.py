@@ -1,0 +1,301 @@
+"""Model assembly for the language models the port serves.
+
+* ``init_model(cfg, generator=, device=)``          -> params dict
+* ``forward_prefill(params, cfg, tokens, max_len=)`` -> (logits, cache)
+* ``forward_decode(params, cfg, token, cache, pos)`` -> (logits, cache)
+* ``init_cache(cfg, batch, max_len, device=)``      -> cache dict
+
+Ported family: ``hybrid`` (Zamba2) — a Mamba2 backbone with ONE shared
+attention+SwiGLU block applied every ``hybrid_attn_period`` layers.  The
+parameter and cache layouts are the reference's: ``mamba_main`` leaves are
+stacked ``(n_groups, period, ...)``, ``mamba_tail`` leaves ``(n_tail, ...)``,
+``shared_attn`` is one block.  The reference's ``lax.scan`` over stacked
+layers is a Python loop over views of the stacked tensors; remat has no
+meaning without autodiff and is dropped.  Prefill attention goes through
+the flash kernel (:func:`repro_torch.kernels.flash_attention.kernel.flash_attention_cuda`) at every
+sequence length, and every Mamba2 layer through the SSD kernel.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+from repro_torch.models.attention import _project_qkv, attend_decode, init_attention
+from repro_torch.models.layers import (
+    embed,
+    init_embedding,
+    init_rms_norm,
+    init_swiglu,
+    rms_norm,
+    swiglu,
+    torch_dtype,
+    unembed,
+)
+from repro_torch.models.ssm import (
+    init_mamba2_block,
+    mamba2_block,
+    mamba2_decode_step,
+    mamba2_state_shape,
+)
+
+__all__ = ["init_model", "forward_prefill", "forward_decode", "forward_train", "init_cache"]
+
+PORTED_FAMILIES = ("hybrid",)
+
+
+def _unported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md queue A item 10: the training path and the "
+        f"dense/moe/ssm/vlm/encdec families come in later slices); ported: {PORTED_FAMILIES}"
+    )
+
+
+def _require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
+        raise _unported(f"family {cfg.family!r}")
+
+
+def _hybrid_layout(cfg: ModelConfig) -> tuple[int, int, int]:
+    period = cfg.hybrid_attn_period
+    n_groups = cfg.n_layers // period
+    return period, n_groups, cfg.n_layers - n_groups * period
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def _init_mamba_layers(cfg, lead, dt, generator, dev) -> dict:
+    return {
+        "ln": init_rms_norm(cfg.d_model, lead=lead, device=dev),
+        "block": init_mamba2_block(cfg, dtype=dt, lead=lead, generator=generator, device=dev),
+    }
+
+
+def _init_attn_block(cfg: ModelConfig, dt, generator, dev) -> dict:
+    return {
+        "ln1": init_rms_norm(cfg.d_model, device=dev),
+        "attn": init_attention(
+            cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            qk_norm=cfg.qk_norm, dtype=dt, generator=generator, device=dev,
+        ),
+        "ln2": init_rms_norm(cfg.d_model, device=dev),
+        "mlp": init_swiglu(cfg.d_model, cfg.d_ff, dtype=dt, generator=generator, device=dev),
+    }
+
+
+def init_model(
+    cfg: ModelConfig,
+    *,
+    generator: torch.Generator | None = None,
+    device: str | torch.device | None = None,
+) -> dict:
+    """Random params in the config's dtype, drawn on ``device`` (the card by
+    default) from ``generator`` (a generator on that device)."""
+    _require_ported(cfg)
+    dev = resolve_device(device)
+    dt = torch_dtype(cfg.dtype)
+    params: dict[str, Any] = {
+        "embed": init_embedding(cfg.vocab_size, cfg.d_model, dtype=dt, generator=generator, device=dev),
+        "final_norm": init_rms_norm(cfg.d_model, device=dev),
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = init_embedding(
+            cfg.vocab_size, cfg.d_model, dtype=dt, generator=generator, device=dev
+        )
+    period, n_groups, n_tail = _hybrid_layout(cfg)
+    params["mamba_main"] = _init_mamba_layers(cfg, (n_groups, period), dt, generator, dev)
+    if n_tail:
+        params["mamba_tail"] = _init_mamba_layers(cfg, (n_tail,), dt, generator, dev)
+    params["shared_attn"] = _init_attn_block(cfg, dt, generator, dev)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+
+def _index(tree: dict, *idx: int) -> dict:
+    """The layer ``idx`` of a stacked params/cache dict (views, no copies)."""
+    return {k: _index(v, *idx) if isinstance(v, dict) else v[idx] for k, v in tree.items()}
+
+
+def _attn_block_seq(
+    p: dict, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor
+) -> tuple[torch.Tensor, dict]:
+    """Causal full-sequence attention block (prefill) through the flash
+    kernel at every S; returns (x, its K/V for the cache)."""
+    h = rms_norm(p["ln1"], x, cfg.norm_eps)
+    q, k, v = _project_qkv(p["attn"], h, positions, cfg)
+    B, S = x.shape[:2]
+    out = flash_attention_cuda(q, k, v, causal=True, window=cfg.window)
+    x = x + out.reshape(B, S, -1) @ p["attn"]["wo"]["w"]
+    x = x + swiglu(p["mlp"], rms_norm(p["ln2"], x, cfg.norm_eps))
+    return x, {"k": k, "v": v}
+
+
+def _attn_block_decode(
+    p: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict, pos: int
+) -> torch.Tensor:
+    """One-token attention block against a KV cache (B, Smax, KV, D),
+    written in place; sliding-window archs use a ring buffer (Smax = window)."""
+    B = x.shape[0]
+    h = rms_norm(p["ln1"], x, cfg.norm_eps)
+    q, k, v = _project_qkv(p["attn"], h, torch.tensor([pos], device=x.device), cfg)
+    s_max = cache["k"].shape[1]
+    ring = cfg.window is not None and s_max == cfg.window
+    slot = pos % s_max if ring else min(pos, s_max - 1)
+    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    valid = torch.full((B,), min(pos + 1, s_max), device=x.device)
+    out = attend_decode(q, cache["k"], cache["v"], valid)
+    x = x + out.reshape(B, 1, -1) @ p["attn"]["wo"]["w"]
+    return x + swiglu(p["mlp"], rms_norm(p["ln2"], x, cfg.norm_eps))
+
+
+def _mamba_layer(p_l: dict, h: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+    y, caches = mamba2_block(p_l["block"], rms_norm(p_l["ln"], h, cfg.norm_eps), cfg)
+    return h + y, caches
+
+
+def _stack(caches: list[dict]) -> dict:
+    return {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
+
+
+def _hybrid_stack_seq(params: dict, cfg: ModelConfig, x: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """Mamba groups, each followed by the shared attention block, then the
+    Mamba tail.  Returns (x, caches) with the reference's stacked layout."""
+    period, n_groups, n_tail = _hybrid_layout(cfg)
+    positions = torch.arange(x.shape[1], device=x.device)
+    group_m, group_a = [], []
+    for gi in range(n_groups):
+        layer_caches = []
+        for li in range(period):
+            x, c = _mamba_layer(_index(params["mamba_main"], gi, li), x, cfg)
+            layer_caches.append(c)
+        x, a = _attn_block_seq(params["shared_attn"], x, cfg, positions)
+        group_m.append(_stack(layer_caches))
+        group_a.append(a)
+    tail = []
+    for ti in range(n_tail):
+        x, c = _mamba_layer(_index(params["mamba_tail"], ti), x, cfg)
+        tail.append(c)
+    return x, {"groups": {"mamba": _stack(group_m), "attn": _stack(group_a)},
+               "tail": _stack(tail) if tail else None}
+
+
+# ---------------------------------------------------------------------------
+# Serving: cache init / prefill / decode
+# ---------------------------------------------------------------------------
+
+
+def init_cache(
+    cfg: ModelConfig, batch: int, max_len: int, *, device: str | torch.device | None = None
+) -> dict:
+    """Zeroed cache (KV in the config's dtype, SSM states f32) on ``device``
+    (the card by default)."""
+    _require_ported(cfg)
+    dev = resolve_device(device)
+    dt = torch_dtype(cfg.dtype)
+    kv_len = min(max_len, cfg.window) if cfg.window else max_len
+    period, n_groups, n_tail = _hybrid_layout(cfg)
+    shapes = mamba2_state_shape(cfg, batch)
+    kv_shape = (n_groups, batch, kv_len, cfg.n_kv_heads, cfg.head_dim)
+
+    def mamba(lead):
+        return {"conv": torch.zeros(lead + shapes["conv"], dtype=dt, device=dev),
+                "ssm": torch.zeros(lead + shapes["ssm"], dtype=torch.float32, device=dev)}
+
+    out = {"groups": {"mamba": mamba((n_groups, period)),
+                      "attn": {"k": torch.zeros(kv_shape, dtype=dt, device=dev),
+                               "v": torch.zeros(kv_shape, dtype=dt, device=dev)}}}
+    if n_tail:
+        out["tail"] = mamba((n_tail,))
+    return out
+
+
+def _pad_kv(caches: dict, cfg: ModelConfig, max_len: int) -> dict:
+    """Pad prefill K/V (L, B, S, KV, D) to the serving cache length.
+
+    Sliding-window caches are ring buffers indexed ``slot = pos % window``:
+    the kept tail of the prompt is scattered to its ring slots so later
+    decode writes land consistently.
+    """
+    kv_len = min(max_len, cfg.window) if cfg.window else max_len
+
+    def pad(x: torch.Tensor) -> torch.Tensor:
+        S = x.shape[2]
+        if S == kv_len:
+            return x
+        out = torch.zeros(x.shape[:2] + (kv_len,) + x.shape[3:], dtype=x.dtype, device=x.device)
+        if S > kv_len:   # ring buffer: token t -> slot t % window
+            slots = torch.arange(S - kv_len, S, device=x.device) % kv_len
+            out[:, :, slots] = x[:, :, S - kv_len :]
+        else:
+            out[:, :, :S] = x
+        return out
+
+    return {k: pad(v) for k, v in caches.items()}
+
+
+def forward_prefill(
+    params: dict, cfg: ModelConfig, tokens: torch.Tensor, *, max_len: int | None = None
+) -> tuple[torch.Tensor, dict]:
+    """Process a full prompt; returns (last-position logits (B, V) f32, cache)."""
+    _require_ported(cfg)
+    x = embed(params["embed"], tokens).to(torch_dtype(cfg.dtype))
+    max_len = max_len or x.shape[1]
+    x, caches = _hybrid_stack_seq(params, cfg, x)
+    cache = {"groups": {"mamba": caches["groups"]["mamba"],
+                        "attn": _pad_kv(caches["groups"]["attn"], cfg, max_len)}}
+    if caches["tail"] is not None:
+        cache["tail"] = caches["tail"]
+    x = rms_norm(params["final_norm"], x, cfg.norm_eps)
+    return _unembed(params, cfg, x[:, -1:, :])[:, 0, :], cache
+
+
+def _unembed(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    return unembed(params["embed"] if cfg.tie_embeddings else params["unembed"], x)
+
+
+def forward_decode(
+    params: dict, cfg: ModelConfig, token: torch.Tensor, cache: dict, pos: int
+) -> tuple[torch.Tensor, dict]:
+    """One decode step. token (B, 1) -> (logits (B, V) f32, cache).
+
+    Unlike the reference, which returns a new cache, this writes the new
+    K/V rows and SSM/conv states into ``cache`` in place (a copy of the
+    whole KV cache per token would be wasted bytes) and returns it."""
+    _require_ported(cfg)
+    x = embed(params["embed"], token).to(torch_dtype(cfg.dtype))
+    period, n_groups, n_tail = _hybrid_layout(cfg)
+
+    def mamba_step(p_l, c_stack, *idx):
+        nonlocal x
+        h2 = rms_norm(p_l["ln"], x, cfg.norm_eps)
+        y, new_c = mamba2_decode_step(p_l["block"], h2, _index(c_stack, *idx), cfg)
+        for k, v in new_c.items():
+            c_stack[k][idx] = v
+        x = x + y
+
+    groups = cache["groups"]
+    for gi in range(n_groups):
+        for li in range(period):
+            mamba_step(_index(params["mamba_main"], gi, li), groups["mamba"], gi, li)
+        x = _attn_block_decode(params["shared_attn"], x, cfg, _index(groups["attn"], gi), pos)
+    for ti in range(n_tail):
+        mamba_step(_index(params["mamba_tail"], ti), cache["tail"], ti)
+    x = rms_norm(params["final_norm"], x, cfg.norm_eps)
+    return _unembed(params, cfg, x)[:, 0, :], cache
+
+
+def forward_train(params: dict, cfg: ModelConfig, batch: dict, **_: Any):
+    """Not ported yet: the training path comes with the backward kernels."""
+    raise _unported("forward_train")

@@ -1,15 +1,24 @@
-"""On-card checks of the port's CUDA kernel; each skips on a host without a
+"""On-card checks of the port's CUDA kernels; each skips on a host without a
 CUDA device.  The tests import only the port, so they run on a machine
 without JAX:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 
-Tolerance: the kernel against its plain PyTorch version, at most 1 ADC
-count and fewer than 5% of counts off (sums in another order can cross a
-round-half boundary); padding rows of a region-skip bucket are exact zeros.
+Tolerances, each kernel against its plain PyTorch version on the card:
+- fpca_conv: at most 1 ADC count and fewer than 5% of counts off (sums in
+  another order can cross a round-half boundary); padding rows of a
+  region-skip bucket are exact zeros.
+- flash attention: float32 within 1e-4 (f32 sums in another order); bf16
+  and fp16 within one unit in the last place of the output type
+  (rtol 2**-7 resp. 2**-10, plus 1e-4): both sides compute in f32 and round
+  once, so two f32 results a few ulp apart may round to neighbours.
+- SSD intra-chunk: max|diff| <= 2e-5 * max|want| (f32 sums of up to 128
+  products taken in another order).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import pytest
 import torch
@@ -17,12 +26,20 @@ import torch
 from repro_torch import fpca
 from repro_torch.core.adc import ADCConfig
 from repro_torch.core.curvefit import fit_bucket_model
+from repro_torch.configs import ARCHS, reduce_for_smoke
+from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.fpca_conv.kernel import (
     conv_tables,
     fpca_conv_basis,
     fpca_conv_cuda,
     weight_planes,
 )
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_cuda
+from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref
+from repro_torch.models import ssm
+from repro_torch.models.attention import attend_blockwise
+from repro_torch.models.transformer import forward_decode, forward_prefill, init_model
 
 pytestmark = pytest.mark.gpu
 
@@ -102,3 +119,177 @@ def test_compiled_model_launches_the_kernel_and_matches_basis(cuda, model):
     diff = (counts - want).abs()
     assert float(diff.max()) <= 1.0 and float((diff > 0).float().mean()) < 0.05
     assert logits.shape == (5, 3) and bool(torch.isfinite(logits).all())
+
+
+# ---------------------------------------------------------------------------
+# flash attention forward
+# ---------------------------------------------------------------------------
+
+_FLASH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2**-7, 1e-4), torch.float16: (2**-10, 1e-4)}
+
+
+def _qkv(b, sq, sk, h, kv, d, dtype, dev, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((b, sq, h, d), generator=g).to(dev, dtype)
+    k = torch.randn((b, sk, kv, d), generator=g).to(dev, dtype)
+    v = torch.randn((b, sk, kv, d), generator=g).to(dev, dtype)
+    return q, k, v
+
+
+@pytest.mark.parametrize(
+    "b,sq,sk,h,kv,d,causal,window",
+    [
+        (1, 256, 256, 4, 4, 64, True, None),     # MHA causal, whole tiles
+        (2, 200, 200, 8, 2, 32, True, None),     # GQA, ragged
+        (1, 256, 256, 4, 1, 64, False, None),    # MQA, bidirectional
+        (1, 300, 300, 4, 2, 128, True, 64),      # sliding window
+        (2, 130, 130, 4, 4, 112, True, None),    # the served head dim, ragged
+        (1, 77, 333, 2, 1, 16, False, 50),       # Sq != Sk, window without causal
+        (1, 333, 77, 2, 2, 112, True, None),     # Sq > Sk, causal
+    ],
+)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain_version(cuda, b, sq, sk, h, kv, d, causal, window, dtype):
+    q, k, v = _qkv(b, sq, sk, h, kv, d, dtype, cuda, seed=sq + d)
+    before = flash_attention_cuda.launches
+    got = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    want = attend_blockwise(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and got.shape == (b, sq, h, d)
+    rtol, atol = _FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+def test_flash_kernel_reads_strided_heads(cuda):
+    """q/k/v as column slices of one packed projection, fp16."""
+    qkv = torch.randn((2, 150, 3 * 4 * 64), device=cuda, dtype=torch.float16)
+    q, k, v = (t.reshape(2, 150, 4, 64) for t in qkv.split(4 * 64, dim=-1))
+    assert not q.is_contiguous()
+    got = flash_attention_cuda(q, k, v)
+    want = attend_blockwise(q, k, v)
+    rtol, atol = _FLASH_TOL[torch.float16]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q, k, v = _qkv(1, 64, 64, 4, 2, 32, torch.float32, cuda)
+    with pytest.raises(ValueError, match="float32/bfloat16/float16"):
+        flash_attention_cuda(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="share"):
+        flash_attention_cuda(q, k.half(), v)
+    with pytest.raises(ValueError, match="CUDA device"):
+        flash_attention_cuda(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="unit-stride"):
+        flash_attention_cuda(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_cuda(*_qkv(1, 8, 8, 1, 1, 160, torch.float32, cuda))
+    with pytest.raises(ValueError, match="H % KV"):
+        flash_attention_cuda(*_qkv(1, 8, 8, 3, 2, 32, torch.float32, cuda))
+
+
+# ---------------------------------------------------------------------------
+# SSD intra-chunk
+# ---------------------------------------------------------------------------
+
+
+def _ssd_chunk_inputs(b, nc, q, h, p, n, g, dev, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    xbar = torch.randn((b, nc, q, h, p), generator=gen).to(dev)
+    Bg = torch.randn((b, nc, q, g, n), generator=gen).to(dev)
+    Cg = torch.randn((b, nc, q, g, n), generator=gen).to(dev)
+    cum = -torch.cumsum(torch.nn.functional.softplus(torch.randn((b, nc, q, h), generator=gen)), 2).to(dev)
+    if g == 1:
+        return xbar, Bg.expand(b, nc, q, h, n), Cg.expand(b, nc, q, h, n), cum
+    return xbar, Bg.repeat_interleave(h // g, 3), Cg.repeat_interleave(h // g, 3), cum
+
+
+def _normwise(got, want, tol=2e-5):
+    assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
+@pytest.mark.parametrize(
+    "b,nc,q,h,p,n,g",
+    [
+        (2, 3, 128, 4, 64, 64, 1),     # the served chunk and widths
+        (1, 2, 64, 8, 64, 128, 1),     # wide state
+        (2, 3, 32, 4, 16, 8, 1),       # small dims
+        (1, 2, 100, 6, 48, 40, 3),     # ragged chunk, three groups (repeated)
+        (1, 1, 16, 2, 128, 16, 1),     # wide heads
+    ],
+)
+def test_ssd_kernel_matches_plain_version(cuda, b, nc, q, h, p, n, g):
+    xbar, Bh, Ch, cum = _ssd_chunk_inputs(b, nc, q, h, p, n, g, cuda, seed=q + p + n)
+    before = ssd_intra_chunk_cuda.launches
+    y, states, decay = ssd_intra_chunk_cuda(xbar, Bh, Ch, cum)
+    torch.cuda.synchronize()
+    assert ssd_intra_chunk_cuda.launches == before + 1
+    y_ref, s_ref, d_ref = ssd_intra_chunk_ref(xbar, Bh, Ch, cum)
+    assert y.shape == y_ref.shape and states.shape == s_ref.shape == (b, nc, h, p, n)
+    _normwise(y, y_ref)
+    _normwise(states, s_ref)
+    assert torch.equal(decay, d_ref)
+
+
+def test_ssd_chunked_through_the_kernel_matches_plain(cuda):
+    gen = torch.Generator().manual_seed(3)
+    b, l, h, p, n = 2, 300, 4, 32, 16
+    x = torch.randn((b, l, h, p), generator=gen).to(cuda)
+    dt = torch.nn.functional.softplus(torch.randn((b, l, h), generator=gen) - 1).to(cuda)
+    A = -torch.exp(torch.randn(h, generator=gen) * 0.5).to(cuda)
+    B = torch.randn((b, l, 1, n), generator=gen).to(cuda)
+    C = torch.randn((b, l, 1, n), generator=gen).to(cuda)
+    s0 = torch.randn((b, h, p, n), generator=gen).to(cuda)
+    before = ssd_intra_chunk_cuda.launches
+    y, s = ssd_ops.ssd_chunked(x, dt, A, B, C, chunk=128, initial_state=s0)
+    assert ssd_intra_chunk_cuda.launches == before + 1
+    y_ref, s_ref = ssm.ssd_chunked(x, dt, A, B, C, chunk=128, initial_state=s0)
+    _normwise(y, y_ref)
+    _normwise(s, s_ref)
+
+
+def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    xbar, Bh, Ch, cum = _ssd_chunk_inputs(1, 2, 32, 4, 16, 8, 1, cuda)
+    with pytest.raises(ValueError, match="float32"):
+        ssd_intra_chunk_cuda(xbar.double(), Bh, Ch, cum)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_intra_chunk_cuda(xbar.transpose(3, 4).contiguous().transpose(3, 4), Bh, Ch, cum)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ssd_intra_chunk_cuda(xbar, Bh.cpu(), Ch, cum)
+    with pytest.raises(ValueError, match="unit-stride"):
+        ssd_intra_chunk_cuda(xbar, Bh.transpose(3, 4).contiguous().transpose(3, 4), Ch, cum)
+    with pytest.raises(ValueError, match="q <= 128"):
+        ssd_intra_chunk_cuda(*_ssd_chunk_inputs(1, 1, 130, 2, 16, 8, 1, cuda))
+
+
+# ---------------------------------------------------------------------------
+# the LM serving path on the card
+# ---------------------------------------------------------------------------
+
+
+def test_zamba2_smoke_serving_launches_both_kernels_and_matches_the_host(cuda):
+    cfg = reduce_for_smoke(ARCHS["zamba2-7b"])
+    host = init_model(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    card = _to(host, cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 200), generator=torch.Generator().manual_seed(1))
+    before = (flash_attention_cuda.launches, ssd_intra_chunk_cuda.launches)
+    logits, cache = forward_prefill(card, cfg, tokens.to(cuda), max_len=208)
+    assert (flash_attention_cuda.launches - before[0], ssd_intra_chunk_cuda.launches - before[1]) == (1, 3)
+    want, want_cache = forward_prefill(host, cfg, tokens, max_len=208)
+    torch.testing.assert_close(logits.cpu(), want, rtol=1e-4, atol=1e-4)
+    nxt = logits.argmax(-1, keepdim=True)
+    mid = (flash_attention_cuda.launches, ssd_intra_chunk_cuda.launches)
+    l2, _ = forward_decode(card, cfg, nxt, cache, 200)
+    assert (flash_attention_cuda.launches, ssd_intra_chunk_cuda.launches) == mid
+    w2, _ = forward_decode(host, cfg, nxt.cpu(), want_cache, 200)
+    torch.testing.assert_close(l2.cpu(), w2, rtol=1e-4, atol=1e-4)
+
+    bf = dataclasses.replace(cfg, dtype="bfloat16")
+    params = init_model(bf, generator=torch.Generator(device=cuda).manual_seed(0))
+    assert params["embed"]["table"].dtype == torch.bfloat16 and params["embed"]["table"].is_cuda
+    lb, _ = forward_prefill(params, bf, tokens.to(cuda))
+    assert bool(torch.isfinite(lb).all())
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
