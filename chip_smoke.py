@@ -28,7 +28,24 @@ then the language-model serving path (``repro_torch.launch.serve``):
    the narrow smoke config (f32), and each LM kernel against its plain
    version at the served shapes, on inputs captured from a served prefill;
 11. times each LM kernel, its plain version, its bound and the library call
-   that computes the same function, and profiles one prefill.
+   that computes the same function, and profiles one prefill;
+
+then, with zamba2's weights freed, the training path
+(``repro_torch.training.train_step``):
+
+12. holds dense training through the kernels on the card against the plain
+   path on the host on the narrow qwen3 smoke config (f32): loss and every
+   gradient;
+13. initialises qwen3-1.7b at full width and depth (28 layers, d_model
+   2048, 16 heads over 8 KV heads of 128, vocab 151936) in bf16 on the card
+   from a seeded CUDA generator, and takes 4 AdamW steps on synthetic data
+   at 8 x 4096 tokens (2 microbatches, full remat), checking finite loss
+   and grad norm and the exact launch counts of the three flash kernels
+   on every step;
+14. holds the dQ and dK/dV kernels (and the forward's LSE) against their
+   plain version on inputs captured from a training step, times them
+   beside their bounds, their plain version and the SDPA backward, and
+   profiles one step.
 
 It prints one JSON line ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {...}}``; a failed phase exits non-zero before
@@ -38,6 +55,7 @@ that line, as does a host with no CUDA device.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import statistics
 import subprocess
@@ -64,6 +82,13 @@ from repro_torch.kernels.fpca_conv.kernel import (  # noqa: E402
     weight_planes,
 )
 from repro_torch.configs import ARCHS, reduce_for_smoke  # noqa: E402
+from repro_torch.data.pipeline import LMStreamConfig, SyntheticLM  # noqa: E402
+from repro_torch.kernels.flash_attention import bwd as flash_bwd  # noqa: E402
+from repro_torch.kernels.flash_attention.bwd import (  # noqa: E402
+    flash_attention_dkdv_cuda,
+    flash_attention_dq_cuda,
+)
+from repro_torch.kernels.flash_attention.bwd_ref import attention_delta, flash_attention_bwd_ref  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda  # noqa: E402
 from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_cuda  # noqa: E402
@@ -71,7 +96,10 @@ from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models.attention import attend_blockwise  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
-from repro_torch.models.transformer import forward_decode, forward_prefill, init_model  # noqa: E402
+from repro_torch.models.transformer import forward_decode, forward_prefill, forward_train, init_model  # noqa: E402
+from repro_torch.training.optimizer import AdamWConfig, init_adamw  # noqa: E402
+from repro_torch.training.train_step import make_train_step  # noqa: E402
+from repro_torch.training.tree import tree_leaves  # noqa: E402
 
 SEED = 0
 BATCHES = (1, 64, 256)
@@ -93,6 +121,16 @@ FLASH_RTOL, FLASH_ATOL, SSD_NORMWISE = 2.0**-7, 1e-4, 2e-5
 # port on the card vs port on the host, smoke config in f32 (sums in
 # another order through 3 layers)
 SMOKE_TOL = 1e-4
+
+# Training path: qwen3-1.7b at full width and depth, 4 AdamW steps of
+# 8 x 4096 tokens in 2 microbatches of 4 sequences, full remat
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS, TRAIN_REMAT = "qwen3-1.7b", 8, 4096, 2, 4, "full"
+# card vs host on the smoke config (f32): loss within 1e-5, each gradient
+# leaf within 1e-4 of its max|value| (sums in another order through 2
+# layers); dQ/dK/dV kernels vs plain at the trained shape (bf16): within two
+# bf16 ulps of max|value| (both compute in f32 and round once); the LSE (f32)
+# within 1e-5 of max|value|
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, LSE_TOL = 1e-5, 1e-4, 1e-5
 
 
 def check(cond: bool, msg: str) -> None:
@@ -289,6 +327,9 @@ def main() -> None:
         "library_ms": None,
     }
     kernels = [fpca_entry] + lm_phase(dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels += train_phase(dev, smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
@@ -333,11 +374,11 @@ def capture_first_calls():
     intra-chunk call of a run (through the module attributes the model
     looks up at call time); yields the dict they land in."""
     seen: dict = {}
-    chunked = ssd_ops.ssd_chunked
+    chunked, flash = ssd_ops.ssd_chunked, transformer.flash_attention
 
     def flash_hook(q, k, v, **kw):
         seen.setdefault("flash", (q, k, v, kw))
-        return flash_attention_cuda(q, k, v, **kw)
+        return flash(q, k, v, **kw)
 
     def intra_hook(xbar, Bh, Ch, cum):
         seen.setdefault("ssd", (xbar, Bh, Ch, cum))
@@ -346,11 +387,11 @@ def capture_first_calls():
     def chunked_hook(*args, **kw):
         return chunked(*args, intra_chunk=intra_hook, **kw)
 
-    transformer.flash_attention_cuda, ssd_ops.ssd_chunked = flash_hook, chunked_hook
+    transformer.flash_attention, ssd_ops.ssd_chunked = flash_hook, chunked_hook
     try:
         yield seen
     finally:
-        transformer.flash_attention_cuda, ssd_ops.ssd_chunked = flash_attention_cuda, chunked
+        transformer.flash_attention, ssd_ops.ssd_chunked = flash, chunked
 
 
 def _to(tree: dict, dev: torch.device) -> dict:
@@ -499,6 +540,7 @@ def lm_phase(dev: torch.device, smi: str) -> list[dict]:
           f"mean served decode step ({step_ms:.2f} ms)")
     for row in rows:
         print(f"  {row}")
+    del params, logits, cache, nxt, out   # zamba2's weights and caches: the training phase needs the room
 
     return [
         {
@@ -529,6 +571,200 @@ def lm_phase(dev: torch.device, smi: str) -> list[dict]:
             "library_ms": None,
         },
     ]
+
+
+# ---------------------------------------------------------------------------
+# the training path
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def capture_first_backward():
+    """Record the inputs ``(q, k, v, out, lse, dO)`` of the first flash
+    backward of a run (through the module attribute ``FlashAttention``
+    looks up at call time); yields the dict they land in."""
+    seen: dict = {}
+    real = flash_bwd.flash_attention_bwd_cuda
+
+    def hook(q, k, v, out, lse, do, **kw):
+        seen.setdefault("bwd", (q, k, v, out, lse, do, kw))
+        return real(q, k, v, out, lse, do, **kw)
+
+    flash_bwd.flash_attention_bwd_cuda = hook
+    try:
+        yield seen
+    finally:
+        flash_bwd.flash_attention_bwd_cuda = real
+
+
+def _launch_counts() -> tuple[int, int, int]:
+    return (flash_attention_cuda.launches, flash_attention_dq_cuda.launches,
+            flash_attention_dkdv_cuda.launches)
+
+
+def _zero_launch_counts() -> None:
+    flash_attention_cuda.launches = flash_attention_dq_cuda.launches = flash_attention_dkdv_cuda.launches = 0
+
+
+def bf16_ulps(top: float, n: int = 2) -> float:
+    return n * 2.0 ** (np.floor(np.log2(top)) - 7)
+
+
+def train_phase(dev: torch.device, smi: str) -> list[dict]:
+    """Train qwen3-1.7b at full width; check and time the backward kernels."""
+    # ---- 12. the kernel path against the host's plain path, smoke config ----
+    small = reduce_for_smoke(ARCHS[TRAIN_ARCH])
+    host = init_model(small, generator=torch.Generator().manual_seed(SEED), device="cpu")
+    card = _to(host, dev)
+    rng = np.random.default_rng(SEED)
+    batch = {k: torch.as_tensor(rng.integers(0, small.vocab_size, (2, 200))) for k in ("tokens", "labels")}
+    host_leaves = [p.requires_grad_() for p in tree_leaves(host)]
+    card_leaves = [p.requires_grad_() for p in tree_leaves(card)]
+    for remat in ("none", "full"):
+        want_loss, _ = forward_train(host, small, batch, remat=remat)
+        want = torch.autograd.grad(want_loss, host_leaves)
+        loss, _ = forward_train(card, small, {k: v.to(dev) for k, v in batch.items()}, remat=remat)
+        got = torch.autograd.grad(loss, card_leaves)
+        loss_err = abs(float(loss.detach()) - float(want_loss.detach()))
+        grad_err = max(float((x.cpu() - w).abs().max()) / float(w.abs().max()) for x, w in zip(got, want))
+        print(f"smoke {TRAIN_ARCH} (f32, 2 layers) training, remat {remat}, card kernels vs host plain: "
+              f"|Δloss| {loss_err:.2e}, gradients max|Δ|/max|value| {grad_err:.2e}")
+        check(loss_err <= TRAIN_LOSS_TOL and grad_err <= TRAIN_GRAD_TOL,
+              f"smoke training (remat {remat}) on the card disagrees with the host")
+    del host, card, host_leaves, card_leaves, got, want, loss, want_loss
+
+    # ---- 13. init at full width, 4 steps ----------------------------------
+    cfg = ARCHS[TRAIN_ARCH]
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.vocab_size)
+          == (28, 2048, 16, 8, 128, 151936), f"{TRAIN_ARCH} is trained at full width and depth")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = init_model(cfg, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    opt_state = init_adamw(params)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"{TRAIN_ARCH} init on the card: {time.perf_counter() - t0:.2f} s, {n_params:,} parameters "
+          f"(analytic count without norms {cfg.param_count():,}), {cfg.dtype}, AdamW state f32; "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    step_fn = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=20, total_steps=TRAIN_STEPS),
+                              n_micro=TRAIN_MICRO, remat=TRAIN_REMAT)
+    stream = SyntheticLM(LMStreamConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                        global_batch=TRAIN_BATCH, seed=SEED))
+    batches = [{k: torch.as_tensor(v, dtype=torch.long, device=dev) for k, v in stream.batch_at(i).items()}
+               for i in range(TRAIN_STEPS + 1)]
+    # per step: every layer's flash forward runs twice per microbatch (once
+    # in the forward, once when full remat recomputes the block inside the
+    # backward), dQ and dK/dV once each per layer and microbatch
+    per_step = (2 * cfg.n_layers * TRAIN_MICRO, cfg.n_layers * TRAIN_MICRO, cfg.n_layers * TRAIN_MICRO)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_ms = []
+    _zero_launch_counts()
+    with capture_first_backward() as seen:
+        for i in range(TRAIN_STEPS):
+            before = _launch_counts()
+            t0 = time.perf_counter()
+            params, opt_state, metrics = step_fn(params, opt_state, batches[i])
+            loss, gnorm, lr = (float(metrics[k]) for k in ("loss", "grad_norm", "lr"))   # synchronises
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            launched = tuple(a - b for a, b in zip(_launch_counts(), before))
+            print(f"train step {i + 1}: loss {loss:.4f} grad_norm {gnorm:.4f} lr {lr:.2e} "
+                  f"{step_ms[-1]:.1f} ms/step {tokens / step_ms[-1] * 1e3:.0f} tokens/s, "
+                  f"launches (flash fwd, dq, dkdv) {launched}")
+            check(np.isfinite(loss) and np.isfinite(gnorm), f"step {i + 1}: loss {loss}, grad_norm {gnorm}")
+            check(launched == per_step, f"step {i + 1}: launches {launched}, expected {per_step}")
+    launches = dict(zip(("flash_fwd", "dq", "dkdv"), _launch_counts()))
+    steady_ms = statistics.median(step_ms[1:])
+    mfu = 6 * n_params * tokens / (steady_ms / 1e3) / PEAK_BF16_FLOP_PER_S
+    print(f"trained {TRAIN_ARCH} {TRAIN_STEPS} steps of {TRAIN_BATCH}x{TRAIN_SEQ} tokens (n_micro {TRAIN_MICRO}, "
+          f"remat {TRAIN_REMAT}) on {smi}: median of steps 2-{TRAIN_STEPS} {steady_ms:.1f} ms/step, "
+          f"{tokens / steady_ms * 1e3:.0f} tokens/s, mfu {mfu:.4f} (6 N tokens / step time / 989 TFLOP/s), "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; launches {launches}")
+
+    # ---- 14e. profile one step ---------------------------------------------
+    device_ms, rows = profile_device(lambda: float(step_fn(params, opt_state, batches[TRAIN_STEPS])[2]["loss"]),
+                                     runs=1)
+    print(f"profile one train step: device time {device_ms:.1f} ms, busy {device_ms / steady_ms:.1%} of the "
+          f"median step ({steady_ms:.1f} ms)")
+    for row in rows:
+        print(f"  {row}")
+    del params, opt_state, metrics, batches, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 14c. the kernels against the plain version at the trained shape ---
+    *captured, kw = seen["bwd"]
+    q, k, v, out, lse, do = (t.detach() for t in captured)   # no graph for the checks and timings
+    causal, window = kw["causal"], kw["window"]
+    del seen, captured
+    out2, lse2 = flash_attention_cuda(q, k, v, causal=causal, window=window, return_lse=True)
+    _, lse_r = attend_blockwise(q, k, v, causal=causal, window=window, return_lse=True)
+    lse_err = float((lse2 - lse_r).abs().max())
+    check(torch.equal(out2, out) and lse_err <= LSE_TOL * float(lse_r.abs().max()),
+          f"forward LSE disagrees with its plain version (max|Δ| {lse_err:.3e})")
+    del out2, lse2, lse_r
+    delta = attention_delta(out, do)
+    dq = flash_attention_dq_cuda(q, k, v, do, lse, delta, causal=causal, window=window)
+    dk, dv = flash_attention_dkdv_cuda(q, k, v, do, lse, delta, causal=causal, window=window)
+    want = flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal, window=window)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, x, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        top = float(w.float().abs().max())
+        errs[name] = float((x.float() - w.float()).abs().max())
+        print(f"{name} kernel vs plain at q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype}: max|Δ| "
+              f"{errs[name]:.3e}, max|value| {top:.3e}, two bf16 ulps {bf16_ulps(top):.3e}")
+        check(x.dtype == w.dtype and errs[name] <= bf16_ulps(top),
+              f"{name} kernel disagrees with its plain version beyond two bf16 ulps of max|value|")
+    print(f"forward LSE at the trained shape vs plain: max|Δ| {lse_err:.3e}")
+    del dq, dk, dv, want
+
+    # ---- 14d. timings, bounds, library yardstick ----------------------------
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    dq_ms = time_cuda(lambda: flash_attention_dq_cuda(q, k, v, do, lse, delta, causal=causal, window=window))
+    dkdv_ms = time_cuda(lambda: flash_attention_dkdv_cuda(q, k, v, do, lse, delta, causal=causal, window=window))
+    plain_ms = time_cuda(lambda: flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal, window=window),
+                         iters=5)
+    fwd_ms = time_cuda(lambda: flash_attention_cuda(q, k, v, causal=causal, window=window, return_lse=True))
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=H != KV)
+    dot = do.transpose(1, 2)
+    sdpa_bwd_ms = time_cuda(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot, retain_graph=True))
+    pairs = B * H * live_pairs(Sq, Sk, causal, window)
+    el = q.element_size()
+    in_bytes = el * (2 * B * Sq * H * D + 2 * B * Sk * KV * D) + 4 * 2 * B * H * Sq   # q, dO, k, v, lse, delta
+    bounds = {}
+    for name, ops, out_bytes in (("dq", 6 * D * pairs, el * B * Sq * H * D),
+                                 ("dkdv", 8 * D * pairs, el * 2 * B * Sk * KV * D)):
+        tb = (in_bytes + out_bytes) / PEAK_BYTES_PER_S * 1e3
+        to = ops / PEAK_BF16_FLOP_PER_S * 1e3
+        bounds[name] = (max(tb, to), "bytes" if tb >= to else "operations", tb, to, ops)
+    print(f"flash backward at B={B} S={Sq} H={H} KV={KV} D={D} {q.dtype} causal on {smi}: dq kernel {dq_ms:.4f} ms "
+          f"(bound {bounds['dq'][0]:.4f}: bytes {bounds['dq'][2]:.4f}, bf16 ops {bounds['dq'][3]:.4f}, "
+          f"{bounds['dq'][4]:.3e} FLOP), dkdv kernel {dkdv_ms:.4f} ms (bound {bounds['dkdv'][0]:.4f}: bytes "
+          f"{bounds['dkdv'][2]:.4f}, bf16 ops {bounds['dkdv'][3]:.4f}, {bounds['dkdv'][4]:.3e} FLOP), plain "
+          f"backward (dq, dk, dv together) {plain_ms:.4f} ms, sdpa backward (dq, dk, dv together) "
+          f"{sdpa_bwd_ms:.4f} ms; forward kernel with LSE at this shape {fwd_ms:.4f} ms")
+
+    def entry(name, kernel_ms, err, line):
+        bound, by = bounds[name][:2]
+        return {
+            "name": f"flash_attention_{name}",
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "replaces": f"src/repro/kernels/flash_attention/bwd_kernel.py:{line}",
+            "launches": launches[name],
+            "max_abs_err": err,
+            "ms": kernel_ms,
+            # the plain version and SDPA's backward compute dq, dk and dv
+            # together: the same time stands in both rows
+            "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": by,
+            "library_ms": sdpa_bwd_ms,
+        }
+
+    return [entry("dq", dq_ms, errs["dq"], 46), entry("dkdv", dkdv_ms, max(errs["dk"], errs["dv"]), 87)]
 
 
 def _leaves(tree: dict):

@@ -8,6 +8,7 @@ The reference's objects export plain numpy (``BucketCurvefitModel.to_dict()``,
                                    for p in ref_head_params])
     kernel = tensor_from_numpy(np.asarray(ref_kernel))   # on the card by default
     lm = lm_params_from_numpy(jax.tree.map(np.asarray, ref_lm_params))
+    opt = adamw_state_from_numpy(*jax.tree.map(np.asarray, tuple(ref_adamw_state)))
 
 Both sides then compute on the same numbers; random streams are never
 compared.
@@ -22,8 +23,10 @@ import torch
 
 from repro_torch.core.curvefit import BucketCurvefitModel
 from repro_torch.device import resolve_device
+from repro_torch.training.optimizer import AdamWState
 
 __all__ = [
+    "adamw_state_from_numpy",
     "bucket_model_from_dict",
     "head_params_from_numpy",
     "lm_params_from_numpy",
@@ -74,3 +77,17 @@ def lm_params_from_numpy(tree: dict, *, device: str | torch.device | None = None
         return _leaf_from_numpy(node, dev)
 
     return conv(tree)
+
+
+def adamw_state_from_numpy(
+    step: Any, mu: dict, nu: dict, *, device: str | torch.device | None = None
+) -> AdamWState:
+    """The reference's ``AdamWState(step, mu, nu)`` with numpy leaves: the
+    step as a host int32 scalar, the f32 moments copied leaf by leaf onto
+    ``device`` (the card by default) in the params' layout."""
+    dev = resolve_device(device)
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(step)), dtype=torch.int32),
+        mu=lm_params_from_numpy(mu, device=dev),
+        nu=lm_params_from_numpy(nu, device=dev),
+    )

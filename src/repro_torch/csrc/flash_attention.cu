@@ -9,7 +9,13 @@
 // What it computes, per (batch b, query head h, query row i):
 //   s_j = (q_i . k_j) * D^-1/2 over the live keys j of kv head h / (H/KV)
 //         (live: j < Sk, and j <= i if causal, and i - j < window if windowed)
-//   out_i = sum_j softmax(s)_j v_j, in q's dtype.
+//   out_i = sum_j softmax(s)_j v_j, in q's dtype;
+//   and, when the lse pointer is not null (training), the row log-sum-exp
+//   lse[b, h, i] = m_i + log(max(l_i, 1e-30)) in f32, which the backward
+//   kernels (flash_attention_bwd.cu) recompute the probabilities from.
+//   The LSE store is a template switch, not a runtime branch: serving
+//   passes null and runs an instantiation without it (a runtime test cost
+//   5 registers and 8% at the served zamba2 shape on the H100).
 // Inputs are read through their (batch, seq, head) strides, so the model's
 // (B, S, H, D) layout is used as it is; only the head dim must be unit-stride.
 //
@@ -68,11 +74,11 @@ struct Strides {
   long long b, s, h;   // elements; the head dim is unit-stride
 };
 
-// DPT output dims per thread (tx + 16 * dd), so D <= 16 * DPT.
-template <typename T, int DPT>
+// DPT output dims per thread (tx + 16 * dd), so D <= 16 * DPT; kLse: write lse.
+template <typename T, int DPT, bool kLse>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ out, int Sq, int Sk, int H, int KV, int D, Strides qs,
+                 T* __restrict__ out, float* __restrict__ lse, int Sq, int Sk, int H, int KV, int D, Strides qs,
                  Strides ks, Strides vs, int causal, int window, float scale) {
   extern __shared__ float smem[];
   const int dq = D + 1;                 // Q row stride: two rows a warp reads sit in two banks
@@ -203,6 +209,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int row = q0 + ty + 16 * i;
     if (row >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    // m and l are the same in the 16 lanes of a row (butterfly reductions)
+    if constexpr (kLse) {
+      if (tx == 0) lse[(static_cast<long long>(b) * H + h) * Sq + row] = m[i] + logf(denom);
+    }
     T* o = out + ((static_cast<long long>(b) * Sq + row) * H + h) * D;
 #pragma unroll
     for (int dd = 0; dd < DPT; ++dd) {
@@ -213,13 +223,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 }
 
 template <typename T, int DPT>
-cudaError_t launch_typed(const void* q, const void* k, const void* v, void* out, int B, int Sq,
+cudaError_t launch_typed(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq,
                          int Sk, int H, int KV, int D, Strides qs, Strides ks, Strides vs,
                          int causal, int window, float scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (static_cast<size_t>(kBQ) * (D + 1) +
                                        static_cast<size_t>(D) * (kBK + 1) +
                                        static_cast<size_t>(kBK) * D + kBQ * (kBK + 1));
-  auto kernel = flash_fwd_kernel<T, DPT>;
+  auto kernel = lse != nullptr ? flash_fwd_kernel<T, DPT, true> : flash_fwd_kernel<T, DPT, false>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -227,31 +237,32 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v, void* out,
   }
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                           static_cast<const T*>(v), static_cast<T*>(out), Sq,
+                                           static_cast<const T*>(v), static_cast<T*>(out), lse, Sq,
                                            Sk, H, KV, D, qs, ks, vs, causal, window, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_dpt(const void* q, const void* k, const void* v, void* out, int B, int Sq,
+cudaError_t launch_dpt(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq,
                        int Sk, int H, int KV, int D, Strides qs, Strides ks, Strides vs,
                        int causal, int window, float scale, cudaStream_t stream) {
   if (D <= 16)
-    return launch_typed<T, 1>(q, k, v, out, B, Sq, Sk, H, KV, D, qs, ks, vs, causal, window, scale, stream);
+    return launch_typed<T, 1>(q, k, v, out, lse, B, Sq, Sk, H, KV, D, qs, ks, vs, causal, window, scale, stream);
   if (D <= 32)
-    return launch_typed<T, 2>(q, k, v, out, B, Sq, Sk, H, KV, D, qs, ks, vs, causal, window, scale, stream);
+    return launch_typed<T, 2>(q, k, v, out, lse, B, Sq, Sk, H, KV, D, qs, ks, vs, causal, window, scale, stream);
   if (D <= 64)
-    return launch_typed<T, 4>(q, k, v, out, B, Sq, Sk, H, KV, D, qs, ks, vs, causal, window, scale, stream);
-  return launch_typed<T, 8>(q, k, v, out, B, Sq, Sk, H, KV, D, qs, ks, vs, causal, window, scale, stream);
+    return launch_typed<T, 4>(q, k, v, out, lse, B, Sq, Sk, H, KV, D, qs, ks, vs, causal, window, scale, stream);
+  return launch_typed<T, 8>(q, k, v, out, lse, B, Sq, Sk, H, KV, D, qs, ks, vs, causal, window, scale, stream);
 }
 
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16, 2 float16 (q, k, v and out share it).
-// window <= 0 means no window.  Strides are in elements.  Launches on
-// `stream`; returns cudaGetLastError() (0 on success).
+// lse: null, or (B, H, Sq) contiguous f32.  window <= 0 means no window.
+// Strides are in elements.  Launches on `stream`; returns
+// cudaGetLastError() (0 on success).
 extern "C" int flash_attention_fwd_launch(const void* q, const void* k, const void* v, void* out,
-                                          int dtype, int B, int Sq, int Sk, int H, int KV, int D,
+                                          float* lse, int dtype, int B, int Sq, int Sk, int H, int KV, int D,
                                           long long q_sb, long long q_ss, long long q_sh,
                                           long long k_sb, long long k_ss, long long k_sh,
                                           long long v_sb, long long v_ss, long long v_sh,
@@ -263,11 +274,11 @@ extern "C" int flash_attention_fwd_launch(const void* q, const void* k, const vo
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch_dpt<float>(q, k, v, out, B, Sq, Sk, H, KV, D, qs, ks, vs, causal, window, scale, st);
+      return launch_dpt<float>(q, k, v, out, lse, B, Sq, Sk, H, KV, D, qs, ks, vs, causal, window, scale, st);
     case 1:
-      return launch_dpt<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, H, KV, D, qs, ks, vs, causal, window, scale, st);
+      return launch_dpt<__nv_bfloat16>(q, k, v, out, lse, B, Sq, Sk, H, KV, D, qs, ks, vs, causal, window, scale, st);
     case 2:
-      return launch_dpt<__half>(q, k, v, out, B, Sq, Sk, H, KV, D, qs, ks, vs, causal, window, scale, st);
+      return launch_dpt<__half>(q, k, v, out, lse, B, Sq, Sk, H, KV, D, qs, ks, vs, causal, window, scale, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -4,7 +4,8 @@
 ``csrc/flash_attention.cu`` on CUDA tensors; on CPU tensors it takes the
 plain PyTorch version :func:`ref.flash_attention_ref`.  The kernel reads q,
 k and v in the model's (B, S, heads, D) layout through their strides (the
-head dim must be unit-stride) and writes a contiguous output in q's dtype.
+head dim must be unit-stride) and writes a contiguous output in q's dtype
+and, for training, the row log-sum-exp the backward kernels take.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ def _launcher() -> ctypes._CFuncPtr:
 
     fn = _build.load("flash_attention").flash_attention_fwd_launch
     fn.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 9
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 9
         + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
@@ -69,24 +70,29 @@ def flash_attention_cuda(
     *,
     causal: bool = True,
     window: int | None = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """Attention forward ``(B,Sq,H,D)`` in q's dtype through the CUDA kernel.
 
     q ``(B,Sq,H,D)``, k/v ``(B,Sk,KV,D)``, one of float32/bfloat16/float16;
     query row i sees key j when j <= i (``causal``) and i - j < ``window``.
-    A CPU ``q`` takes :func:`flash_attention_ref`; a CUDA one launches the
-    kernel on the current stream, or raises.  Every launch adds one to
+    With ``return_lse`` it returns ``(out, lse)``, lse ``(B,H,Sq)`` f32 (see
+    :func:`repro_torch.models.attention.attend_blockwise`).  A CPU ``q``
+    takes :func:`flash_attention_ref`; a CUDA one launches the kernel on the
+    current stream, or raises.  Every launch adds one to
     ``flash_attention_cuda.launches``.
     """
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
+        return flash_attention_ref(q, k, v, causal=causal, window=window, return_lse=return_lse)
     _check(q, k, v, window)
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if return_lse else None
     with torch.cuda.device(q.device):
         err = _launcher()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             _DTYPES[q.dtype], B, Sq, Sk, H, KV, D,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             int(causal), 0 if window is None else int(window), D**-0.5,
@@ -95,7 +101,7 @@ def flash_attention_cuda(
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed with CUDA error {err}")
     flash_attention_cuda.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention_cuda.launches = 0

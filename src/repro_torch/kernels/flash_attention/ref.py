@@ -3,6 +3,8 @@
 The reference's prefill attends with ``attend_full`` up to 2048 tokens and
 with the blockwise online softmax above; :func:`flash_attention_ref` routes
 the same way, so on the host the port computes what the reference computes.
+Training needs the row log-sum-exp, which only the blockwise path (the
+reference's custom_vjp forward, ``_flash_fwd_impl``) gives.
 """
 
 from __future__ import annotations
@@ -23,8 +25,10 @@ def flash_attention_ref(
     *,
     causal: bool = True,
     window: int | None = None,
-) -> torch.Tensor:
-    """q (B,Sq,H,D), k/v (B,Sk,KV,D) -> (B,Sq,H,D) in q's dtype."""
-    if q.shape[1] > FULL_MAX_SEQ:
-        return attend_blockwise(q, k, v, causal=causal, window=window)
+    return_lse: bool = False,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
+    """q (B,Sq,H,D), k/v (B,Sk,KV,D) -> (B,Sq,H,D) in q's dtype, and with
+    ``return_lse`` the (B,H,Sq) f32 log-sum-exp beside it."""
+    if return_lse or q.shape[1] > FULL_MAX_SEQ:
+        return attend_blockwise(q, k, v, causal=causal, window=window, return_lse=return_lse)
     return attend_full(q, k, v, causal=causal, window=window)

@@ -69,11 +69,18 @@ def ssd_intra_chunk_cuda(
     copy).  Returns ``(y_intra (b,nc,q,h,p), states (b,nc,h,p,n),
     chunk_decay (b,nc,h))``.  A CPU ``xbar`` takes
     :func:`ssd_intra_chunk_ref`; a CUDA one launches the kernel on the
-    current stream, or raises.  Every launch adds one to
+    current stream, or raises (also when grad mode is on and an input
+    requires grad: the kernel has no backward).  Every launch adds one to
     ``ssd_intra_chunk_cuda.launches``.
     """
     if xbar.device.type == "cpu":
         return ssd_intra_chunk_ref(xbar, Bh, Ch, cum)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (xbar, Bh, Ch, cum)):
+        # the kernel's outputs would carry no grad_fn and drop these gradients
+        raise RuntimeError(
+            "ssd_intra_chunk_cuda has no backward yet (ROADMAP.md queue A item 10: hybrid "
+            "training needs an SSD backward first); call it under torch.no_grad()"
+        )
     _check(xbar, Bh, Ch, cum)
     b, nc, q, h, p = xbar.shape
     n = Bh.shape[-1]

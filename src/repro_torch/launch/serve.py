@@ -41,12 +41,14 @@ def _synchronize(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+@torch.no_grad()
 def serve(
     params: dict, cfg: ModelConfig, prompts: np.ndarray, *, batch: int, tokens: int,
     device: torch.device,
 ) -> dict:
     """Serve ``prompts`` (R, S) in waves of ``batch``; ``tokens`` greedy
-    tokens per request (the first from the prefill).
+    tokens per request (the first from the prefill).  Runs without
+    autograd, so params that require grad build no graph.
 
     Returns the generated ``sequences`` (R, tokens) as numpy, per-wave
     ``prefill_ms`` / ``decode_ms`` (host clock around synchronised work),

@@ -4,13 +4,20 @@ Three paths share one set of projection weights:
 
 * ``attend_full``      — einsum + masked softmax; the plain version of the
                          flash kernel for S <= 2048;
-* ``attend_blockwise`` — online-softmax loop over key blocks, forward only;
-                         memory O(S * block) — the plain version for longer
-                         sequences;
+* ``attend_blockwise`` — online-softmax loop over key blocks, memory
+                         O(S * block), optionally with the row log-sum-exp —
+                         the plain version for longer sequences and for
+                         training;
 * ``attend_decode``    — single-query attention against a KV cache.
 
-The model's prefill calls :func:`repro_torch.kernels.flash_attention.kernel.flash_attention_cuda`,
-which launches the CUDA kernel on the card and takes these on the host.
+The model's full-sequence blocks call :func:`flash_attention`: with no
+gradient needed it is the forward kernel's wrapper
+(:func:`repro_torch.kernels.flash_attention.kernel.flash_attention_cuda`),
+and with one it is :class:`FlashAttention`, whose forward is that kernel
+with its LSE output and whose backward is the dQ and dK/dV kernels
+(``kernels/flash_attention/bwd.py``) — the pairing the reference's
+``_flash`` custom_vjp makes in pure JAX.  On the host each wrapper takes
+its plain version.
 
 Layouts: q (B, S, H, D), k/v (B, S, KV, D); GQA groups G = H // KV are an
 explicit axis in the score einsums.
@@ -29,6 +36,8 @@ __all__ = [
     "attend_full",
     "attend_blockwise",
     "attend_decode",
+    "flash_attention",
+    "FlashAttention",
 ]
 
 NEG_INF = -1e30
@@ -42,10 +51,11 @@ def init_attention(
     *,
     qk_norm: bool = False,
     dtype: torch.dtype = torch.bfloat16,
+    lead: tuple = (),
     generator: torch.Generator | None = None,
     device: str | torch.device | None = None,
 ) -> dict:
-    kw = dict(dtype=dtype, generator=generator, device=device)
+    kw = dict(dtype=dtype, lead=lead, generator=generator, device=device)
     p = {
         "wq": init_dense(d_model, n_heads * head_dim, **kw),
         "wk": init_dense(d_model, n_kv_heads * head_dim, **kw),
@@ -53,8 +63,8 @@ def init_attention(
         "wo": init_dense(n_heads * head_dim, d_model, **kw),
     }
     if qk_norm:
-        p["q_norm"] = init_rms_norm(head_dim, device=device)
-        p["k_norm"] = init_rms_norm(head_dim, device=device)
+        p["q_norm"] = init_rms_norm(head_dim, lead=lead, device=device)
+        p["k_norm"] = init_rms_norm(head_dim, lead=lead, device=device)
     return p
 
 
@@ -115,24 +125,30 @@ def attend_blockwise(
     causal: bool = True,
     window: int | None = None,
     block_k: int = 512,
-) -> torch.Tensor:
+    return_lse: bool = False,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """Flash attention forward in plain PyTorch: the math of the flash
     kernel (online softmax over key blocks, f32 throughout, output in q's
     dtype), memory O(Sq * block_k).  The reference pads keys to whole
     blocks and masks the padding; slicing the ragged last block is the same
-    sum.  Its backward, and the LSE it needs, come with the training path."""
+    sum.  With ``return_lse`` it also returns the row log-sum-exp
+    ``m + log(max(l, 1e-30))`` as (B, H, Sq) f32, heads in the order
+    ``h = kv * G + g`` (the reference's (B, KV, G, Sq) in the same memory),
+    which the backward recomputes the probabilities from.  float64 inputs
+    are computed in float64 (for gradient checks), all others in f32."""
     B, Sq, H, D = q.shape
     KV, Sk = k.shape[2], k.shape[1]
     G = H // KV
     scale = D**-0.5
-    qg = _grouped(q, KV).float()
+    ct = torch.promote_types(q.dtype, torch.float32)
+    qg = _grouped(q, KV).to(ct)
     pos_q = torch.arange(Sq, device=q.device)[:, None]
-    m = torch.full((B, KV, G, Sq), NEG_INF, dtype=torch.float32, device=q.device)
-    l = torch.zeros((B, KV, G, Sq), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((B, KV, G, Sq, D), dtype=torch.float32, device=q.device)
+    m = torch.full((B, KV, G, Sq), NEG_INF, dtype=ct, device=q.device)
+    l = torch.zeros((B, KV, G, Sq), dtype=ct, device=q.device)
+    acc = torch.zeros((B, KV, G, Sq, D), dtype=ct, device=q.device)
     for k0 in range(0, Sk, block_k):
-        k_blk = k[:, k0 : k0 + block_k].float()
-        v_blk = v[:, k0 : k0 + block_k].float()
+        k_blk = k[:, k0 : k0 + block_k].to(ct)
+        v_blk = v[:, k0 : k0 + block_k].to(ct)
         s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_blk) * scale
         pos_k = k0 + torch.arange(k_blk.shape[1], device=q.device)[None, :]
         mask = torch.ones((Sq, k_blk.shape[1]), dtype=torch.bool, device=q.device)
@@ -147,8 +163,11 @@ def attend_blockwise(
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p, v_blk)
         m = m_new
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+    l_safe = torch.clamp(l, min=1e-30)
+    out = (acc / l_safe[..., None]).permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+    if return_lse:
+        return out, (m + torch.log(l_safe)).reshape(B, H, Sq)
+    return out
 
 
 def attend_decode(
@@ -174,3 +193,47 @@ def attend_decode(
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v_cache.float())
     return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with a flash backward: ``FlashAttention.apply(q, k, v,
+    causal, window)``.  The forward saves ``(q, k, v, out, lse)``, no
+    O(S^2) residual; the backward recomputes the probabilities from them.
+    Kernels on CUDA tensors, plain versions on CPU tensors (the wrappers
+    decide by device)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int | None):
+        # imported here: the kernels' plain versions import this module
+        from repro_torch.kernels.flash_attention import kernel
+
+        out, lse = kernel.flash_attention_cuda(q, k, v, causal=causal, window=window, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        from repro_torch.kernels.flash_attention import bwd
+
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = bwd.flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+) -> torch.Tensor:
+    """q (B,Sq,H,D), k/v (B,Sk,KV,D) -> (B,Sq,H,D).  Through
+    :class:`FlashAttention` when a gradient is needed; otherwise one
+    forward launch without the LSE, as serving runs it."""
+    from repro_torch.kernels.flash_attention import kernel
+
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window)
+    return kernel.flash_attention_cuda(q, k, v, causal=causal, window=window)

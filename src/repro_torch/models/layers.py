@@ -36,6 +36,7 @@ __all__ = [
     "embed",
     "unembed",
     "rope",
+    "cross_entropy_loss",
 ]
 
 
@@ -162,10 +163,11 @@ def init_swiglu(
     d_ff: int,
     *,
     dtype: torch.dtype = torch.bfloat16,
+    lead: tuple = (),
     generator: torch.Generator | None = None,
     device: str | torch.device | None = None,
 ) -> dict:
-    kw = dict(dtype=dtype, generator=generator, device=device)
+    kw = dict(dtype=dtype, lead=lead, generator=generator, device=device)
     return {
         "gate": init_dense(d, d_ff, **kw),
         "up": init_dense(d, d_ff, **kw),
@@ -207,3 +209,20 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4) -> torch.
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def cross_entropy_loss(
+    logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Mean token cross-entropy in f32.  logits (..., V), labels (...) int.
+
+    The gold logit is gathered (the reference sums a one-hot product, which
+    is the same value; a ``(..., V)`` one-hot would not fit at V = 151936)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

@@ -1,19 +1,22 @@
-"""Model assembly for the language models the port serves.
+"""Model assembly for the language models the port runs.
 
 * ``init_model(cfg, generator=, device=)``          -> params dict
+* ``forward_train(params, cfg, batch, remat=)``     -> (loss, metrics)
 * ``forward_prefill(params, cfg, tokens, max_len=)`` -> (logits, cache)
 * ``forward_decode(params, cfg, token, cache, pos)`` -> (logits, cache)
 * ``init_cache(cfg, batch, max_len, device=)``      -> cache dict
 
-Ported family: ``hybrid`` (Zamba2) — a Mamba2 backbone with ONE shared
-attention+SwiGLU block applied every ``hybrid_attn_period`` layers.  The
-parameter and cache layouts are the reference's: ``mamba_main`` leaves are
-stacked ``(n_groups, period, ...)``, ``mamba_tail`` leaves ``(n_tail, ...)``,
+Ported: serving for ``hybrid`` (Zamba2: a Mamba2 backbone with ONE shared
+attention+SwiGLU block applied every ``hybrid_attn_period`` layers) and
+training for ``dense`` (pre-norm GQA + SwiGLU decoder, e.g. Qwen3).  The
+parameter and cache layouts are the reference's: dense ``blocks`` leaves
+are stacked ``(n_layers, ...)``; hybrid ``mamba_main`` leaves
+``(n_groups, period, ...)``, ``mamba_tail`` leaves ``(n_tail, ...)``,
 ``shared_attn`` is one block.  The reference's ``lax.scan`` over stacked
-layers is a Python loop over views of the stacked tensors; remat has no
-meaning without autodiff and is dropped.  Prefill attention goes through
-the flash kernel (:func:`repro_torch.kernels.flash_attention.kernel.flash_attention_cuda`) at every
-sequence length, and every Mamba2 layer through the SSD kernel.
+layers is a Python loop over views of the stacked tensors.  Full-sequence
+attention goes through :func:`repro_torch.models.attention.flash_attention`
+at every sequence length (the flash kernels on the card), and every Mamba2
+layer through the SSD kernel.
 """
 
 from __future__ import annotations
@@ -21,12 +24,13 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
-from repro_torch.models.attention import _project_qkv, attend_decode, init_attention
+from repro_torch.models.attention import _project_qkv, attend_decode, flash_attention, init_attention
 from repro_torch.models.layers import (
+    cross_entropy_loss,
     embed,
     init_embedding,
     init_rms_norm,
@@ -43,21 +47,22 @@ from repro_torch.models.ssm import (
     mamba2_state_shape,
 )
 
-__all__ = ["init_model", "forward_prefill", "forward_decode", "forward_train", "init_cache"]
+__all__ = ["init_model", "forward_prefill", "forward_decode", "forward_train", "init_cache",
+           "REMAT_POLICIES"]
 
-PORTED_FAMILIES = ("hybrid",)
-
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue A item 10: the training path and the "
-        f"dense/moe/ssm/vlm/encdec families come in later slices); ported: {PORTED_FAMILIES}"
-    )
+# what each family has in the port so far
+SERVED_FAMILIES = ("hybrid",)
+TRAINED_FAMILIES = ("dense",)
+REMAT_POLICIES = ("none", "full")   # the reference's "dots" policies: ROADMAP queue A item 10
 
 
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise _unported(f"family {cfg.family!r}")
+def _require(cfg: ModelConfig, families: tuple[str, ...], what: str) -> None:
+    if cfg.family not in families:
+        raise NotImplementedError(
+            f"{what} for family {cfg.family!r} is not ported yet (ROADMAP.md queue A item 10: "
+            f"hybrid training, dense serving and the moe/ssm/vlm/encdec families come in later "
+            f"slices); serving is ported for {SERVED_FAMILIES}, training for {TRAINED_FAMILIES}"
+        )
 
 
 def _hybrid_layout(cfg: ModelConfig) -> tuple[int, int, int]:
@@ -78,15 +83,15 @@ def _init_mamba_layers(cfg, lead, dt, generator, dev) -> dict:
     }
 
 
-def _init_attn_block(cfg: ModelConfig, dt, generator, dev) -> dict:
+def _init_attn_block(cfg: ModelConfig, dt, generator, dev, lead: tuple = ()) -> dict:
     return {
-        "ln1": init_rms_norm(cfg.d_model, device=dev),
+        "ln1": init_rms_norm(cfg.d_model, lead=lead, device=dev),
         "attn": init_attention(
             cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-            qk_norm=cfg.qk_norm, dtype=dt, generator=generator, device=dev,
+            qk_norm=cfg.qk_norm, dtype=dt, lead=lead, generator=generator, device=dev,
         ),
-        "ln2": init_rms_norm(cfg.d_model, device=dev),
-        "mlp": init_swiglu(cfg.d_model, cfg.d_ff, dtype=dt, generator=generator, device=dev),
+        "ln2": init_rms_norm(cfg.d_model, lead=lead, device=dev),
+        "mlp": init_swiglu(cfg.d_model, cfg.d_ff, dtype=dt, lead=lead, generator=generator, device=dev),
     }
 
 
@@ -98,7 +103,7 @@ def init_model(
 ) -> dict:
     """Random params in the config's dtype, drawn on ``device`` (the card by
     default) from ``generator`` (a generator on that device)."""
-    _require_ported(cfg)
+    _require(cfg, SERVED_FAMILIES + TRAINED_FAMILIES, "init_model")
     dev = resolve_device(device)
     dt = torch_dtype(cfg.dtype)
     params: dict[str, Any] = {
@@ -109,6 +114,9 @@ def init_model(
         params["unembed"] = init_embedding(
             cfg.vocab_size, cfg.d_model, dtype=dt, generator=generator, device=dev
         )
+    if cfg.family == "dense":
+        params["blocks"] = _init_attn_block(cfg, dt, generator, dev, lead=(cfg.n_layers,))
+        return params
     period, n_groups, n_tail = _hybrid_layout(cfg)
     params["mamba_main"] = _init_mamba_layers(cfg, (n_groups, period), dt, generator, dev)
     if n_tail:
@@ -127,15 +135,24 @@ def _index(tree: dict, *idx: int) -> dict:
     return {k: _index(v, *idx) if isinstance(v, dict) else v[idx] for k, v in tree.items()}
 
 
+def _unstack(tree: dict, n: int) -> list[dict]:
+    """The ``n`` layers of a stacked params dict as views, through one
+    ``unbind`` per leaf: its backward stacks the layers' gradients once,
+    where indexing each layer would add a zero-filled gradient of the whole
+    stack per layer."""
+    leaves = {k: _unstack(v, n) if isinstance(v, dict) else torch.unbind(v) for k, v in tree.items()}
+    return [{k: v[i] for k, v in leaves.items()} for i in range(n)]
+
+
 def _attn_block_seq(
     p: dict, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor
 ) -> tuple[torch.Tensor, dict]:
-    """Causal full-sequence attention block (prefill) through the flash
-    kernel at every S; returns (x, its K/V for the cache)."""
+    """Causal full-sequence attention block (training, prefill) through
+    the flash kernels at every S; returns (x, its K/V for the cache)."""
     h = rms_norm(p["ln1"], x, cfg.norm_eps)
     q, k, v = _project_qkv(p["attn"], h, positions, cfg)
     B, S = x.shape[:2]
-    out = flash_attention_cuda(q, k, v, causal=True, window=cfg.window)
+    out = flash_attention(q, k, v, causal=True, window=cfg.window)
     x = x + out.reshape(B, S, -1) @ p["attn"]["wo"]["w"]
     x = x + swiglu(p["mlp"], rms_norm(p["ln2"], x, cfg.norm_eps))
     return x, {"k": k, "v": v}
@@ -201,7 +218,7 @@ def init_cache(
 ) -> dict:
     """Zeroed cache (KV in the config's dtype, SSM states f32) on ``device``
     (the card by default)."""
-    _require_ported(cfg)
+    _require(cfg, SERVED_FAMILIES, "init_cache")
     dev = resolve_device(device)
     dt = torch_dtype(cfg.dtype)
     kv_len = min(max_len, cfg.window) if cfg.window else max_len
@@ -245,11 +262,13 @@ def _pad_kv(caches: dict, cfg: ModelConfig, max_len: int) -> dict:
     return {k: pad(v) for k, v in caches.items()}
 
 
+@torch.no_grad()
 def forward_prefill(
     params: dict, cfg: ModelConfig, tokens: torch.Tensor, *, max_len: int | None = None
 ) -> tuple[torch.Tensor, dict]:
-    """Process a full prompt; returns (last-position logits (B, V) f32, cache)."""
-    _require_ported(cfg)
+    """Process a full prompt; returns (last-position logits (B, V) f32, cache).
+    Runs without autograd (no graph, even for params that require grad)."""
+    _require(cfg, SERVED_FAMILIES, "forward_prefill")
     x = embed(params["embed"], tokens).to(torch_dtype(cfg.dtype))
     max_len = max_len or x.shape[1]
     x, caches = _hybrid_stack_seq(params, cfg, x)
@@ -265,6 +284,7 @@ def _unembed(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return unembed(params["embed"] if cfg.tie_embeddings else params["unembed"], x)
 
 
+@torch.no_grad()
 def forward_decode(
     params: dict, cfg: ModelConfig, token: torch.Tensor, cache: dict, pos: int
 ) -> tuple[torch.Tensor, dict]:
@@ -272,8 +292,9 @@ def forward_decode(
 
     Unlike the reference, which returns a new cache, this writes the new
     K/V rows and SSM/conv states into ``cache`` in place (a copy of the
-    whole KV cache per token would be wasted bytes) and returns it."""
-    _require_ported(cfg)
+    whole KV cache per token would be wasted bytes) and returns it.  Runs
+    without autograd."""
+    _require(cfg, SERVED_FAMILIES, "forward_decode")
     x = embed(params["embed"], token).to(torch_dtype(cfg.dtype))
     period, n_groups, n_tail = _hybrid_layout(cfg)
 
@@ -296,6 +317,32 @@ def forward_decode(
     return _unembed(params, cfg, x)[:, 0, :], cache
 
 
-def forward_train(params: dict, cfg: ModelConfig, batch: dict, **_: Any):
-    """Not ported yet: the training path comes with the backward kernels."""
-    raise _unported("forward_train")
+def forward_train(
+    params: dict, cfg: ModelConfig, batch: dict, *, remat: str = "full"
+) -> tuple[torch.Tensor, dict]:
+    """Next-token cross-entropy of a dense decoder.  batch: ``tokens``
+    (B, S), ``labels`` (B, S)[, ``loss_mask`` (B, S)] on the params' device.
+    Returns (total loss, metrics) with the reference's metric keys; the moe
+    terms are zeros, so the total is the CE loss.
+
+    ``remat="full"`` recomputes each block in the backward
+    (``torch.utils.checkpoint``, the reference's ``nothing_saveable``), so
+    the flash forward runs twice per layer; ``"none"`` keeps every
+    activation."""
+    _require(cfg, TRAINED_FAMILIES, "forward_train")
+    if remat not in REMAT_POLICIES:
+        raise NotImplementedError(
+            f"remat={remat!r} is not ported yet (ROADMAP.md queue A item 10); ported: {REMAT_POLICIES}"
+        )
+    x = embed(params["embed"], batch["tokens"]).to(torch_dtype(cfg.dtype))
+    positions = torch.arange(x.shape[1], device=x.device)
+
+    def block(h: torch.Tensor, p_l: dict) -> torch.Tensor:
+        return _attn_block_seq(p_l, h, cfg, positions)[0]
+
+    for p_l in _unstack(params["blocks"], cfg.n_layers):
+        x = checkpoint(block, x, p_l, use_reentrant=False) if remat == "full" else block(x, p_l)
+    x = rms_norm(params["final_norm"], x, cfg.norm_eps)
+    loss = cross_entropy_loss(_unembed(params, cfg, x), batch["labels"], batch.get("loss_mask"))
+    zero = torch.zeros((), dtype=torch.float32, device=loss.device)
+    return loss, {"ce_loss": loss, "moe_lb_loss": zero, "moe_z_loss": zero, "moe_drop_frac": zero}

@@ -14,11 +14,18 @@ Tolerances, each kernel against its plain PyTorch version on the card:
   once, so two f32 results a few ulp apart may round to neighbours.
 - SSD intra-chunk: max|diff| <= 2e-5 * max|want| (f32 sums of up to 128
   products taken in another order).
+- flash backward (dQ, dK/dV) and the forward's LSE, normwise against the
+  plain version: float32 max|diff| <= 1e-5 * max|want| (f32 sums over up to
+  G x S terms in another order); bf16 within two bf16 ulps of max|want|
+  (both sides compute in f32 and round each gradient once).
+- the dense smoke training step, card vs host (f32): loss within 1e-5,
+  every gradient leaf within 1e-4 of its max|want|.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import pytest
 import torch
@@ -27,6 +34,12 @@ from repro_torch import fpca
 from repro_torch.core.adc import ADCConfig
 from repro_torch.core.curvefit import fit_bucket_model
 from repro_torch.configs import ARCHS, reduce_for_smoke
+from repro_torch.kernels.flash_attention.bwd import (
+    flash_attention_bwd_cuda,
+    flash_attention_dkdv_cuda,
+    flash_attention_dq_cuda,
+)
+from repro_torch.kernels.flash_attention.bwd_ref import attention_delta, flash_attention_bwd_ref
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.fpca_conv.kernel import (
     conv_tables,
@@ -38,8 +51,9 @@ from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_cuda
 from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref
 from repro_torch.models import ssm
-from repro_torch.models.attention import attend_blockwise
-from repro_torch.models.transformer import forward_decode, forward_prefill, init_model
+from repro_torch.models.attention import FlashAttention, attend_blockwise
+from repro_torch.models.transformer import forward_decode, forward_prefill, forward_train, init_model
+from repro_torch.training.tree import tree_leaves
 
 pytestmark = pytest.mark.gpu
 
@@ -186,6 +200,103 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         flash_attention_cuda(*_qkv(1, 8, 8, 1, 1, 160, torch.float32, cuda))
     with pytest.raises(ValueError, match="H % KV"):
         flash_attention_cuda(*_qkv(1, 8, 8, 3, 2, 32, torch.float32, cuda))
+
+
+BWD_GRID = [
+    (1, 192, 192, 4, 4, 32, True, None),     # MHA causal
+    (2, 160, 160, 4, 2, 32, True, None),     # GQA (group sum in the block)
+    (1, 128, 128, 4, 1, 64, False, None),    # MQA bidirectional
+    (1, 200, 200, 2, 2, 32, True, 48),       # sliding window, ragged
+    (1, 77, 333, 4, 2, 128, False, None),    # Sq != Sk, non-causal, D = 128
+    (2, 300, 300, 4, 2, 128, True, None),    # the trained head dim, GQA, ragged
+]
+
+
+def _bwd_close(got: torch.Tensor, want: torch.Tensor, name: str) -> None:
+    assert got.dtype == want.dtype and got.shape == want.shape, name
+    err, top = float((got.float() - want.float()).abs().max()), float(want.float().abs().max())
+    if got.dtype == torch.float32:
+        tol = 1e-5 * top
+    else:   # two bf16 ulps of max|want|
+        tol = 2 * 2.0 ** (math.floor(math.log2(top)) - 7)
+    assert err <= tol, f"{name}: max|diff| {err:.3e} > {tol:.3e}"
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,window", BWD_GRID)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernels_match_plain_version(cuda, b, sq, sk, h, kv, d, causal, window, dtype):
+    q, k, v = _qkv(b, sq, sk, h, kv, d, dtype, cuda, seed=sq + d)
+    do = torch.randn((b, sq, h, d), generator=torch.Generator().manual_seed(1)).to(cuda, dtype)
+    out, lse = flash_attention_cuda(q, k, v, causal=causal, window=window, return_lse=True)
+    out_r, lse_r = attend_blockwise(q, k, v, causal=causal, window=window, return_lse=True)
+    torch.cuda.synchronize()
+    assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
+    _bwd_close(lse, lse_r, "lse")
+    before = (flash_attention_dq_cuda.launches, flash_attention_dkdv_cuda.launches)
+    got = flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert (flash_attention_dq_cuda.launches, flash_attention_dkdv_cuda.launches) == (before[0] + 1, before[1] + 1)
+    want = flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal, window=window)
+    for name, x, w in zip(("dq", "dk", "dv"), got, want):
+        _bwd_close(x, w, name)
+
+
+def test_flash_bwd_kernels_read_strided_inputs(cuda):
+    """q/k/v as column slices of one packed projection and a transposed dO."""
+    qkv = torch.randn((2, 150, 3 * 4 * 64), device=cuda)
+    q, k, v = (t.reshape(2, 150, 4, 64) for t in qkv.split(4 * 64, dim=-1))
+    do = torch.randn((2, 4, 150, 64), device=cuda).transpose(1, 2)
+    out, lse = flash_attention_cuda(q, k, v, return_lse=True)
+    got = flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    want = flash_attention_bwd_ref(q, k, v, out, lse, do)
+    for name, x, w in zip(("dq", "dk", "dv"), got, want):
+        _bwd_close(x, w, name)
+
+
+def test_flash_bwd_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    q, k, v = _qkv(1, 64, 64, 4, 2, 32, torch.float32, cuda)
+    out, lse = flash_attention_cuda(q, k, v, return_lse=True)
+    delta = attention_delta(out, out)
+    with pytest.raises(ValueError, match="dO"):
+        flash_attention_dq_cuda(q, k, v, out.half(), lse, delta)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_dkdv_cuda(q, k, v, out, lse.double(), delta)
+    with pytest.raises(ValueError, match="delta"):
+        flash_attention_dq_cuda(q, k, v, out, lse, delta[:, :, :10])
+
+
+def test_flash_attention_function_on_the_card_matches_the_host(cuda):
+    q, k, v = (t.requires_grad_() for t in _qkv(2, 130, 130, 4, 2, 64, torch.float32, torch.device("cpu")))
+    do = torch.randn((2, 130, 4, 64), generator=torch.Generator().manual_seed(2))
+    want = torch.autograd.grad(FlashAttention.apply(q, k, v, True, None), (q, k, v), do)
+    qc, kc, vc = (t.detach().to(cuda).requires_grad_() for t in (q, k, v))
+    got = torch.autograd.grad(FlashAttention.apply(qc, kc, vc, True, None), (qc, kc, vc), do.to(cuda))
+    for name, x, w in zip(("dq", "dk", "dv"), got, want):
+        _bwd_close(x.cpu(), w, name)
+
+
+def test_dense_smoke_training_on_the_card_matches_the_host(cuda):
+    cfg = reduce_for_smoke(ARCHS["qwen3-1.7b"])
+    host = init_model(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    card = _to(host, cuda)
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 200), generator=g),
+             "labels": torch.randint(0, cfg.vocab_size, (2, 200), generator=g)}
+    host_leaves = [p.requires_grad_() for p in tree_leaves(host)]
+    card_leaves = [p.requires_grad_() for p in tree_leaves(card)]
+    for remat, launches in (("none", (2, 2, 2)), ("full", (4, 2, 2))):
+        want_loss, _ = forward_train(host, cfg, batch, remat=remat)
+        want = torch.autograd.grad(want_loss, host_leaves)
+        before = (flash_attention_cuda.launches, flash_attention_dq_cuda.launches,
+                  flash_attention_dkdv_cuda.launches)
+        loss, _ = forward_train(card, cfg, {k: t.to(cuda) for k, t in batch.items()}, remat=remat)
+        got = torch.autograd.grad(loss, card_leaves)
+        after = (flash_attention_cuda.launches, flash_attention_dq_cuda.launches,
+                 flash_attention_dkdv_cuda.launches)
+        assert tuple(a - b for a, b in zip(after, before)) == launches, remat
+        assert abs(float(loss.detach()) - float(want_loss.detach())) <= 1e-5
+        for x, w in zip(got, want):
+            assert float((x.cpu() - w).abs().max()) <= 1e-4 * float(w.abs().max())
 
 
 # ---------------------------------------------------------------------------

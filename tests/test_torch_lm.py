@@ -173,9 +173,67 @@ def test_entry_points_need_a_device_without_a_card(monkeypatch):
 @pytest.mark.parametrize("family", ["dense", "moe", "ssm", "vlm", "encdec"])
 def test_other_families_are_not_ported_yet(family):
     cfg = dataclasses.replace(reduce_for_smoke(ARCHS["zamba2-7b"]), family=family)
+    if family == "dense":
+        # dense trains (tests/test_torch_train.py) but does not serve yet, and
+        # hybrid serves but does not train yet
+        dense = reduce_for_smoke(ARCHS["qwen3-1.7b"])
+        params = pt.init_model(dense, generator=torch.Generator(), device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            pt.forward_prefill(params, dense, torch.zeros((1, 4), dtype=torch.long))
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            pt.forward_decode(params, dense, torch.zeros((1, 1), dtype=torch.long), {}, 0)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            pt.forward_train({}, reduce_for_smoke(ARCHS["zamba2-7b"]), {})
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pt.init_model(cfg, generator=torch.Generator(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pt.forward_prefill({}, cfg, torch.zeros((1, 4), dtype=torch.long))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pt.forward_train({}, cfg, {})
+
+
+def test_ssd_kernel_wrapper_refuses_inputs_that_need_a_gradient():
+    """The kernel has no backward, so its outputs would drop the gradients
+    of its inputs; a non-CPU tensor (meta here: no card on the host) that
+    requires grad is refused before any launch."""
+    from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_cuda
+
+    xbar = torch.empty((1, 2, 16, 4, 8), device="meta", requires_grad=True)
+    bc = torch.empty((1, 2, 16, 4, 8), device="meta")
+    cum = torch.empty((1, 2, 16, 4), device="meta")
+    with pytest.raises(RuntimeError, match="no backward"):
+        ssd_intra_chunk_cuda(xbar, bc, bc, cum)
+    before = ssd_intra_chunk_cuda.launches
+    with torch.no_grad(), pytest.raises(ValueError):   # past the guard: the checks want a CUDA device
+        ssd_intra_chunk_cuda(xbar, bc, bc, cum)
+    assert ssd_intra_chunk_cuda.launches == before
+
+
+def test_serving_builds_no_graph_for_params_that_require_grad(f32, monkeypatch):
+    from repro_torch.training.tree import tree_leaves, tree_map
+
+    _, cfg, _, tp = f32
+    params = tree_map(lambda t: t.detach().clone().requires_grad_(), tp)
+    assert all(t.requires_grad for t in tree_leaves(params))
+    toks = torch.as_tensor(np.random.default_rng(3).integers(0, 256, (2, 12)))
+    logits, cache = pt.forward_prefill(params, cfg, toks, max_len=16)
+    assert logits.grad_fn is None and not logits.requires_grad
+    assert all(not t.requires_grad for _, t in _flat(cache))
+    logits, _ = pt.forward_decode(params, cfg, toks[:, :1], cache, 12)
+    assert logits.grad_fn is None
+    seen = []
+    real = serve.make_prefill_step
+
+    def spy(*a, **kw):
+        step = real(*a, **kw)
+
+        def run(*args):
+            seen.append(torch.is_grad_enabled())
+            return step(*args)
+
+        return run
+
+    monkeypatch.setattr(serve, "make_prefill_step", spy)
+    res = serve.serve(params, cfg, np.asarray(toks), batch=2, tokens=2, device=torch.device("cpu"))
+    assert seen == [False] and res["finite"]
