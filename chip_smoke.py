@@ -44,8 +44,11 @@ then, with zamba2's weights freed, the training path
    on every step;
 14. holds the dQ and dK/dV kernels (and the forward's LSE) against their
    plain version on inputs captured from a training step, times them
-   beside their bounds, their plain version and the SDPA backward, and
-   profiles one step.
+   beside their bounds, their plain version and the SDPA backward, prints
+   their achieved TFLOP/s, times the forward kernel and SDPA's forward at
+   that shape, and profiles one step.  Every bf16 dQ and dK/dV launch of a
+   step must take the tensor-core design, and ptxas must report no spill
+   for it (printed after the build).
 
 It prints one JSON line ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {...}}``; a failed phase exits non-zero before
@@ -164,6 +167,28 @@ def time_cuda(fn, iters: int = 20, flush_bytes: int = 128 << 20) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
+def check_wgmma_ptxas(log: str | None) -> None:
+    """Print ptxas's register and spill lines of the tensor-core backward
+    kernels; fail on a spill.  ``log`` is None when the library
+    was already built (nothing to read)."""
+    if log is None:
+        print("ptxas: the backward library was cached; no register report")
+        return
+    kernel, seen = None, set()
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            kernel = next((k for k in ("flash_bwd_dq_wgmma", "flash_bwd_dkdv_wgmma") if k in name), None)
+            if kernel:
+                kernel += "<D=128>" if "ILi128E" in name else "<D=64>"
+        elif kernel and ("spill" in line or "registers" in line):
+            print(f"  ptxas {kernel}: {line.replace('ptxas info    :', '').strip()}")
+            if "spill" in line:
+                seen.add(kernel)
+                check(" 0 bytes spill stores, 0 bytes spill loads" in line, f"{kernel} spills: {line.strip()}")
+    check(len(seen) == 4, f"ptxas reported on {sorted(seen)}, expected both kernels at D=64 and D=128")
+
+
 def logit_bound(head: list[dict], d_counts: torch.Tensor, scale: float) -> torch.Tensor:
     """Per-example bound on |Δlogits| of the Dense(relu) -> Dense head from
     count differences ``d_counts`` (relu is 1-Lipschitz, so
@@ -192,6 +217,7 @@ def main() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas {src}: {line.strip()}")
+    check_wgmma_ptxas(logs.get("flash_attention_bwd"))
 
     # ---- 3. fit + 4. compile ----------------------------------------------
     t0 = time.perf_counter()
@@ -602,8 +628,15 @@ def _launch_counts() -> tuple[int, int, int]:
             flash_attention_dkdv_cuda.launches)
 
 
+def _wgmma_counts() -> tuple[int, int]:
+    """Launches of the dQ and dK/dV kernels that took the tensor-core design."""
+    return flash_attention_dq_cuda.designs["wgmma"], flash_attention_dkdv_cuda.designs["wgmma"]
+
+
 def _zero_launch_counts() -> None:
     flash_attention_cuda.launches = flash_attention_dq_cuda.launches = flash_attention_dkdv_cuda.launches = 0
+    for fn in (flash_attention_dq_cuda, flash_attention_dkdv_cuda):
+        fn.designs = dict.fromkeys(fn.designs, 0)
 
 
 def bf16_ulps(top: float, n: int = 2) -> float:
@@ -661,17 +694,20 @@ def train_phase(dev: torch.device, smi: str) -> list[dict]:
     _zero_launch_counts()
     with capture_first_backward() as seen:
         for i in range(TRAIN_STEPS):
-            before = _launch_counts()
+            before, wgmma_before = _launch_counts(), _wgmma_counts()
             t0 = time.perf_counter()
             params, opt_state, metrics = step_fn(params, opt_state, batches[i])
             loss, gnorm, lr = (float(metrics[k]) for k in ("loss", "grad_norm", "lr"))   # synchronises
             step_ms.append((time.perf_counter() - t0) * 1e3)
             launched = tuple(a - b for a, b in zip(_launch_counts(), before))
+            on_tensor_cores = tuple(a - b for a, b in zip(_wgmma_counts(), wgmma_before))
             print(f"train step {i + 1}: loss {loss:.4f} grad_norm {gnorm:.4f} lr {lr:.2e} "
                   f"{step_ms[-1]:.1f} ms/step {tokens / step_ms[-1] * 1e3:.0f} tokens/s, "
-                  f"launches (flash fwd, dq, dkdv) {launched}")
+                  f"launches (flash fwd, dq, dkdv) {launched}, of which wgmma (dq, dkdv) {on_tensor_cores}")
             check(np.isfinite(loss) and np.isfinite(gnorm), f"step {i + 1}: loss {loss}, grad_norm {gnorm}")
             check(launched == per_step, f"step {i + 1}: launches {launched}, expected {per_step}")
+            check(on_tensor_cores == per_step[1:],
+                  f"step {i + 1}: {on_tensor_cores} dq / dkdv launches took the tensor-core design, expected all")
     launches = dict(zip(("flash_fwd", "dq", "dkdv"), _launch_counts()))
     steady_ms = statistics.median(step_ms[1:])
     mfu = 6 * n_params * tokens / (steady_ms / 1e3) / PEAK_BF16_FLOP_PER_S
@@ -730,6 +766,9 @@ def train_phase(dev: torch.device, smi: str) -> list[dict]:
     sdpa_out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=H != KV)
     dot = do.transpose(1, 2)
     sdpa_bwd_ms = time_cuda(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot, retain_graph=True))
+    with torch.no_grad():
+        sdpa_fwd_ms = time_cuda(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=H != KV))
     pairs = B * H * live_pairs(Sq, Sk, causal, window)
     el = q.element_size()
     in_bytes = el * (2 * B * Sq * H * D + 2 * B * Sk * KV * D) + 4 * 2 * B * H * Sq   # q, dO, k, v, lse, delta
@@ -744,7 +783,14 @@ def train_phase(dev: torch.device, smi: str) -> list[dict]:
           f"{bounds['dq'][4]:.3e} FLOP), dkdv kernel {dkdv_ms:.4f} ms (bound {bounds['dkdv'][0]:.4f}: bytes "
           f"{bounds['dkdv'][2]:.4f}, bf16 ops {bounds['dkdv'][3]:.4f}, {bounds['dkdv'][4]:.3e} FLOP), plain "
           f"backward (dq, dk, dv together) {plain_ms:.4f} ms, sdpa backward (dq, dk, dv together) "
-          f"{sdpa_bwd_ms:.4f} ms; forward kernel with LSE at this shape {fwd_ms:.4f} ms")
+          f"{sdpa_bwd_ms:.4f} ms; forward kernel with LSE at this shape {fwd_ms:.4f} ms, sdpa forward "
+          f"{sdpa_fwd_ms:.4f} ms")
+    # the tensor-core kernels execute 4 passes of 2 D FLOP a live pair (dq:
+    # s, dp, ds_hi k, ds_lo k) and 6 (dkdv: s, dp and the hi and lo passes of
+    # p^T dO and ds^T q); the bound counts the algorithm's 6 D and 8 D
+    for name, kernel_ms, executed in (("dq", dq_ms, 8 * D * pairs), ("dkdv", dkdv_ms, 12 * D * pairs)):
+        print(f"{name} kernel achieved {bounds[name][4] / kernel_ms / 1e9:.1f} TFLOP/s on the required FLOP, "
+              f"{executed / kernel_ms / 1e9:.1f} TFLOP/s on the executed FLOP ({executed:.3e}), on {smi}")
 
     def entry(name, kernel_ms, err, line):
         bound, by = bounds[name][:2]

@@ -7,6 +7,13 @@ hand-written kernels of ``csrc/flash_attention_bwd.cu``,
 CPU tensors each takes the plain version :func:`bwd_ref.flash_attention_bwd_ref`.
 The kernels read q, k, v and dO through their strides (the head dim must be
 unit-stride) and write contiguous gradients in the inputs' dtype.
+
+Each kernel has two designs in the one source, chosen by :func:`design`:
+``"wgmma"`` (bf16 tensor cores, p and ds split into bf16 hi + lo parts) for
+bf16 inputs with ``D % 16 == 0`` and 16-byte-aligned rows, ``"simt"`` (f32
+FMAs on CUDA cores) for everything else.  The choice is made before the
+launch, never after a failure; a failed launch raises.  Beside ``.launches``
+each wrapper counts its launches per design in ``.designs``.
 """
 
 from __future__ import annotations
@@ -19,7 +26,9 @@ import torch
 from repro_torch.kernels.flash_attention.bwd_ref import attention_delta, flash_attention_bwd_ref
 from repro_torch.kernels.flash_attention.kernel import _DTYPES, _check
 
-__all__ = ["flash_attention_bwd_cuda", "flash_attention_dq_cuda", "flash_attention_dkdv_cuda"]
+__all__ = ["design", "flash_attention_bwd_cuda", "flash_attention_dq_cuda", "flash_attention_dkdv_cuda"]
+
+DESIGNS = ("wgmma", "simt")
 
 
 @functools.cache
@@ -28,7 +37,7 @@ def _launchers() -> tuple[ctypes._CFuncPtr, ctypes._CFuncPtr]:
 
     lib = _build.load("flash_attention_bwd")
     tail = [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                                 ctypes.c_void_p]
+                                 ctypes.c_int, ctypes.c_void_p]
     dq, dkdv = lib.flash_attention_bwd_dq_launch, lib.flash_attention_bwd_dkdv_launch
     dq.argtypes = [ctypes.c_void_p] * 7 + tail
     dkdv.argtypes = [ctypes.c_void_p] * 8 + tail
@@ -50,15 +59,27 @@ def _check_bwd(q, k, v, do, lse, delta, window) -> None:
                              f"{tuple(t.shape)} {t.dtype}")
 
 
+def design(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor) -> str:
+    """The kernel design a launch on these inputs takes: ``"wgmma"`` for
+    bf16 with ``D % 16 == 0`` (D <= 128 is checked before) and every row of
+    q, k, v and dO 16-byte aligned (the kernels stage rows by 16-byte
+    copies), ``"simt"`` otherwise."""
+    if q.dtype != torch.bfloat16 or q.shape[3] % 16:
+        return "simt"
+    aligned = all(t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:3]) for t in (q, k, v, do))
+    return "wgmma" if aligned else "simt"
+
+
 def _args(q, k, v, do, lse, delta, causal, window):
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3])
     head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr())
+    chosen = design(q, k, v, do)
     tail = (_DTYPES[q.dtype], B, Sq, Sk, H, KV, D, strides, int(causal),
-            0 if window is None else int(window), D**-0.5,
+            0 if window is None else int(window), D**-0.5, int(chosen == "wgmma"),
             torch.cuda.current_stream(q.device).cuda_stream)
-    return head, tail
+    return head, tail, chosen
 
 
 def flash_attention_dq_cuda(
@@ -69,17 +90,19 @@ def flash_attention_dq_cuda(
     ``(B,Sq,H,D)``, k/v ``(B,Sk,KV,D)`` and the f32 ``(B,H,Sq)`` lse and
     delta.  A CPU ``q`` takes the plain version; a CUDA one launches the
     kernel on the current stream, or raises.  Every launch adds one to
-    ``flash_attention_dq_cuda.launches``."""
+    ``flash_attention_dq_cuda.launches`` and to its design's count in
+    ``flash_attention_dq_cuda.designs``."""
     if q.device.type == "cpu":
         return _plain(q, k, v, do, lse, delta, causal, window)[0]
     _check_bwd(q, k, v, do, lse, delta, window)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    head, tail = _args(q, k, v, do, lse, delta, causal, window)
+    head, tail, chosen = _args(q, k, v, do, lse, delta, causal, window)
     with torch.cuda.device(q.device):
         err = _launchers()[0](*head, dq.data_ptr(), *tail)
     if err:
-        raise RuntimeError(f"flash_attention_bwd dq kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"flash_attention_bwd dq kernel ({chosen}) launch failed with CUDA error {err}")
     flash_attention_dq_cuda.launches += 1
+    flash_attention_dq_cuda.designs[chosen] += 1
     return dq
 
 
@@ -90,23 +113,27 @@ def flash_attention_dkdv_cuda(
     """(dK, dV) ``(B,Sk,KV,D)`` in k's dtype through the CUDA kernel, the G
     query heads of each kv head summed in f32 (arguments as
     :func:`flash_attention_dq_cuda`).  Every launch adds one to
-    ``flash_attention_dkdv_cuda.launches``."""
+    ``flash_attention_dkdv_cuda.launches`` and to its design's count in
+    ``flash_attention_dkdv_cuda.designs``."""
     if q.device.type == "cpu":
         return _plain(q, k, v, do, lse, delta, causal, window)[1:]
     _check_bwd(q, k, v, do, lse, delta, window)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    head, tail = _args(q, k, v, do, lse, delta, causal, window)
+    head, tail, chosen = _args(q, k, v, do, lse, delta, causal, window)
     with torch.cuda.device(q.device):
         err = _launchers()[1](*head, dk.data_ptr(), dv.data_ptr(), *tail)
     if err:
-        raise RuntimeError(f"flash_attention_bwd dkdv kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"flash_attention_bwd dkdv kernel ({chosen}) launch failed with CUDA error {err}")
     flash_attention_dkdv_cuda.launches += 1
+    flash_attention_dkdv_cuda.designs[chosen] += 1
     return dk, dv
 
 
-flash_attention_dq_cuda.launches = 0
-flash_attention_dkdv_cuda.launches = 0
+for _fn in (flash_attention_dq_cuda, flash_attention_dkdv_cuda):
+    _fn.launches = 0
+    _fn.designs = dict.fromkeys(DESIGNS, 0)
+del _fn
 
 
 def _plain(q, k, v, do, lse, delta, causal, window):

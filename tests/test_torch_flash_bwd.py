@@ -30,6 +30,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_dkdv_cuda,
     flash_attention_dq_cuda,
 )
+from repro_torch.kernels.flash_attention.bwd import design
 from repro_torch.kernels.flash_attention.bwd_ref import attention_delta
 from repro_torch.models import attention as pattn
 
@@ -147,3 +148,85 @@ def test_flash_attention_takes_the_function_only_when_a_gradient_is_needed():
     assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
     with torch.no_grad():
         assert pattn.flash_attention(q, k, v, causal=True).grad_fn is None
+
+
+# ---------------------------------------------------------------------------
+# the numerics of the tensor-core kernels, emulated on the host
+# ---------------------------------------------------------------------------
+
+
+def _split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """f32 -> its bf16 hi and lo parts (``x_lo = bf16(x - x_hi)``), as f32."""
+    hi = x.bfloat16().float()
+    return hi, (x - hi).bfloat16().float()
+
+
+def _tensor_core_bwd(q, k, v, do, lse, delta, causal, window, split: bool):
+    """What the wgmma kernels compute, in f64 so that only the split
+    differs between ``split=True`` and ``split=False``: s and dp from the
+    bf16 operands (each product exact), p and ds formed in f32 in the
+    reference's order, then the three accumulations from p and ds either
+    split into bf16 hi + lo parts or whole.  Returns unrounded
+    (dq, dk, dv)."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    G, scale = H // KV, D**-0.5
+    qg, dog = (t.double().reshape(B, S, KV, G, D) for t in (q, do))
+    kd, vd = k.double(), v.double()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kd).float()
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, vd).float()
+    pos = torch.arange(S)
+    live = torch.ones((S, S), dtype=torch.bool)
+    if causal:
+        live &= pos[:, None] >= pos[None, :]
+    if window is not None:
+        live &= pos[:, None] - pos[None, :] < window
+    sv = torch.where(live, s * scale, torch.tensor(pattn.NEG_INF))
+    p = torch.exp(sv - lse.reshape(B, KV, G, S, 1))
+    ds = p * (dp - delta.reshape(B, KV, G, S, 1)) * scale
+    parts = (lambda x: _split(x)) if split else (lambda x: (x, torch.zeros_like(x)))
+    (p_hi, p_lo), (ds_hi, ds_lo) = parts(p), parts(ds)
+    dq = sum(torch.einsum("bhgqk,bkhd->bqhgd", x.double(), kd) for x in (ds_hi, ds_lo))
+    dk = sum(torch.einsum("bhgqk,bqhgd->bkhd", x.double(), qg) for x in (ds_hi, ds_lo))
+    dv = sum(torch.einsum("bhgqk,bqhgd->bkhd", x.double(), dog) for x in (p_hi, p_lo))
+    return dq.reshape(B, S, H, D), dk, dv
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,causal,window", GRID + [(1, 96, 8, 2, 64, True, 40)])
+def test_split_bf16_products_keep_the_reference_function(b, s, h, kv, d, causal, window):
+    """The tensor-core kernels' numerics (bf16 s and dp, p and ds split into
+    bf16 hi + lo for the accumulations) hold the two-bf16-ulp agreement
+    with the plain backward, and the split alone moves the unrounded
+    gradients by at most 2**-16 of max|value|."""
+    q, k, v, do = (torch.from_numpy(a).bfloat16() for a in _inputs(b, s, h, kv, d, seed=s + d))
+    out, lse = pattn.attend_blockwise(q, k, v, causal=causal, window=window, return_lse=True)
+    delta = attention_delta(out, do)
+    want = flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal, window=window)
+    got = _tensor_core_bwd(q, k, v, do, lse, delta, causal, window, split=True)
+    whole = _tensor_core_bwd(q, k, v, do, lse, delta, causal, window, split=False)
+    for name, x, w, x_whole in zip(("dq", "dk", "dv"), got, want, whole):
+        top = float(x_whole.abs().max())
+        assert float((x - x_whole).abs().max()) <= 2.0**-16 * top, name
+        rounded = x.to(torch.bfloat16)
+        assert rounded.dtype == w.dtype == torch.bfloat16
+        _normwise(rounded, w.float().numpy(), _bf16_ulps(w.float().numpy()), name)
+
+
+def _design_case(dtype, d, offset):
+    base = torch.zeros(2 * 16 * 4 * d + offset, dtype=dtype)
+    q = base[offset:offset + 2 * 16 * 4 * d].view(2, 16, 4, d)
+    k = torch.zeros((2, 16, 2, d), dtype=dtype)
+    return q, k, k.clone(), torch.zeros_like(q)
+
+
+@pytest.mark.parametrize("dtype,d,offset,want", [
+    (torch.bfloat16, 128, 0, "wgmma"),
+    (torch.bfloat16, 96, 0, "wgmma"),
+    (torch.bfloat16, 40, 0, "simt"),     # D % 16 != 0
+    (torch.float32, 128, 0, "simt"),
+    (torch.float16, 64, 0, "simt"),
+    (torch.bfloat16, 64, 1, "simt"),     # q's rows not 16-byte aligned
+])
+def test_backward_design_choice(dtype, d, offset, want):
+    """The wrappers' dispatch rule, decided from the inputs before a launch."""
+    assert design(*_design_case(dtype, d, offset)) == want

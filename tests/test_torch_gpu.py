@@ -209,7 +209,18 @@ BWD_GRID = [
     (1, 200, 200, 2, 2, 32, True, 48),       # sliding window, ragged
     (1, 77, 333, 4, 2, 128, False, None),    # Sq != Sk, non-causal, D = 128
     (2, 300, 300, 4, 2, 128, True, None),    # the trained head dim, GQA, ragged
+    (1, 160, 160, 4, 2, 96, True, None),     # D = 96: bf16 pads the head dim to 128
+    (1, 150, 150, 4, 2, 40, True, None),     # D = 40 (not a multiple of 16): SIMT in bf16 too
+    (1, 1024, 1024, 8, 2, 128, True, None),  # causal GQA over many tiles, heaviest first
 ]
+
+
+def _expected_design(dtype, d) -> str:
+    return "wgmma" if dtype == torch.bfloat16 and d % 16 == 0 else "simt"
+
+
+def _designs() -> tuple[dict, dict]:
+    return dict(flash_attention_dq_cuda.designs), dict(flash_attention_dkdv_cuda.designs)
 
 
 def _bwd_close(got: torch.Tensor, want: torch.Tensor, name: str) -> None:
@@ -233,12 +244,30 @@ def test_flash_bwd_kernels_match_plain_version(cuda, b, sq, sk, h, kv, d, causal
     assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
     _bwd_close(lse, lse_r, "lse")
     before = (flash_attention_dq_cuda.launches, flash_attention_dkdv_cuda.launches)
+    designs_before = _designs()
     got = flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=causal, window=window)
     torch.cuda.synchronize()
     assert (flash_attention_dq_cuda.launches, flash_attention_dkdv_cuda.launches) == (before[0] + 1, before[1] + 1)
+    chosen = _expected_design(dtype, d)
+    for was, now in zip(designs_before, _designs()):
+        assert now[chosen] == was[chosen] + 1 and sum(now.values()) == sum(was.values()) + 1, (now, was)
     want = flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal, window=window)
     for name, x, w in zip(("dq", "dk", "dv"), got, want):
         _bwd_close(x, w, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernels_are_deterministic(cuda, dtype):
+    """No atomics: two launches on the same inputs give the same bits."""
+    b, sq, sk, h, kv, d = 2, 300, 300, 4, 2, 128
+    q, k, v = _qkv(b, sq, sk, h, kv, d, dtype, cuda, seed=11)
+    do = torch.randn((b, sq, h, d), generator=torch.Generator().manual_seed(12)).to(cuda, dtype)
+    out, lse = flash_attention_cuda(q, k, v, return_lse=True)
+    first = flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    second = flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(x, y), name
 
 
 def test_flash_bwd_kernels_read_strided_inputs(cuda):
@@ -248,6 +277,21 @@ def test_flash_bwd_kernels_read_strided_inputs(cuda):
     do = torch.randn((2, 4, 150, 64), device=cuda).transpose(1, 2)
     out, lse = flash_attention_cuda(q, k, v, return_lse=True)
     got = flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    want = flash_attention_bwd_ref(q, k, v, out, lse, do)
+    for name, x, w in zip(("dq", "dk", "dv"), got, want):
+        _bwd_close(x, w, name)
+
+
+def test_flash_bwd_tensor_core_kernels_read_strided_inputs(cuda):
+    """bf16 q/k/v as column slices of one packed projection and a transposed
+    dO: every row stays 16-byte aligned, so the wgmma design takes them."""
+    qkv = torch.randn((2, 150, 3 * 4 * 64), device=cuda, dtype=torch.bfloat16)
+    q, k, v = (t.reshape(2, 150, 4, 64) for t in qkv.split(4 * 64, dim=-1))
+    do = torch.randn((2, 4, 150, 64), device=cuda, dtype=torch.bfloat16).transpose(1, 2)
+    out, lse = flash_attention_cuda(q, k, v, return_lse=True)
+    before = _designs()
+    got = flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    assert [now["wgmma"] - was["wgmma"] for was, now in zip(before, _designs())] == [1, 1]
     want = flash_attention_bwd_ref(q, k, v, out, lse, do)
     for name, x, w in zip(("dq", "dk", "dv"), got, want):
         _bwd_close(x, w, name)
