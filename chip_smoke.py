@@ -23,7 +23,8 @@ then the language-model serving path (``repro_torch.launch.serve``):
    seeded CUDA generator;
 9. serves 8 requests of 4096 random tokens in waves of 4, 32 greedy tokens
    each, and checks the launch counts: 13 flash-attention and 81 SSD
-   launches per prefill, none in decode; tokens in range, logits finite;
+   launches per prefill, none in decode, every flash launch on the forward's
+   tensor-core design; tokens in range, logits finite;
 10. holds the port's kernel path against its plain versions on the host on
    the narrow smoke config (f32), and each LM kernel against its plain
    version at the served shapes, on inputs captured from a served prefill;
@@ -42,13 +43,16 @@ then, with zamba2's weights freed, the training path
    at 8 x 4096 tokens (2 microbatches, full remat), checking finite loss
    and grad norm and the exact launch counts of the three flash kernels
    on every step;
-14. holds the dQ and dK/dV kernels (and the forward's LSE) against their
-   plain version on inputs captured from a training step, times them
+14. holds the forward kernel (output within one bf16 ulp, LSE) and the dQ
+   and dK/dV kernels against their plain versions on inputs captured from
+   a training step, prints how far the forward's SIMT design lies from its
+   tensor-core design there, times the backward kernels
    beside their bounds, their plain version and the SDPA backward, prints
    their achieved TFLOP/s, times the forward kernel and SDPA's forward at
-   that shape, and profiles one step.  Every bf16 dQ and dK/dV launch of a
-   step must take the tensor-core design, and ptxas must report no spill
-   for it (printed after the build).
+   that shape with its achieved TFLOP/s, and profiles one step.  Every bf16
+   forward, dQ and dK/dV launch of a step must take the tensor-core design,
+   and ptxas must report no spill for any tensor-core kernel (printed after
+   the build).
 
 It prints one JSON line ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {...}}``; a failed phase exits non-zero before
@@ -92,6 +96,7 @@ from repro_torch.kernels.flash_attention.bwd import (  # noqa: E402
     flash_attention_dq_cuda,
 )
 from repro_torch.kernels.flash_attention.bwd_ref import attention_delta, flash_attention_bwd_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as flash_fwd  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda  # noqa: E402
 from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_cuda  # noqa: E402
@@ -167,26 +172,34 @@ def time_cuda(fn, iters: int = 20, flush_bytes: int = 128 << 20) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def check_wgmma_ptxas(log: str | None) -> None:
-    """Print ptxas's register and spill lines of the tensor-core backward
-    kernels; fail on a spill.  ``log`` is None when the library
-    was already built (nothing to read)."""
-    if log is None:
-        print("ptxas: the backward library was cached; no register report")
-        return
-    kernel, seen = None, set()
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            name = line.split("'")[1]
-            kernel = next((k for k in ("flash_bwd_dq_wgmma", "flash_bwd_dkdv_wgmma") if k in name), None)
-            if kernel:
-                kernel += "<D=128>" if "ILi128E" in name else "<D=64>"
-        elif kernel and ("spill" in line or "registers" in line):
-            print(f"  ptxas {kernel}: {line.replace('ptxas info    :', '').strip()}")
-            if "spill" in line:
-                seen.add(kernel)
-                check(" 0 bytes spill stores, 0 bytes spill loads" in line, f"{kernel} spills: {line.strip()}")
-    check(len(seen) == 4, f"ptxas reported on {sorted(seen)}, expected both kernels at D=64 and D=128")
+# the tensor-core kernels of each flash library; each has 4 instantiations
+# (the forward: DP 64 / 128 x with and without the LSE; dQ and dK/dV: DP 64 / 128)
+WGMMA_KERNELS = {"flash_attention": ("flash_fwd_wgmma",),
+                 "flash_attention_bwd": ("flash_bwd_dq_wgmma", "flash_bwd_dkdv_wgmma")}
+
+
+def check_wgmma_ptxas(logs: dict[str, str]) -> None:
+    """Print ptxas's register and spill lines of the tensor-core kernels;
+    fail on a spill.  A library missing from ``logs`` was already built
+    (nothing to read)."""
+    for lib, names in WGMMA_KERNELS.items():
+        if lib not in logs:
+            print(f"ptxas: the {lib} library was cached; no register report")
+            continue
+        kernel, seen = None, set()
+        for line in logs[lib].splitlines():
+            if "Compiling entry function" in line:
+                name = line.split("'")[1]
+                kernel = next((k for k in names if k in name), None)
+                if kernel:
+                    kernel += "<D=128" if "ILi128E" in name else "<D=64"
+                    kernel += ", lse>" if "Lb1E" in name else ">"
+            elif kernel and ("spill" in line or "registers" in line):
+                print(f"  ptxas {kernel}: {line.replace('ptxas info    :', '').strip()}")
+                if "spill" in line:
+                    seen.add(kernel)
+                    check(" 0 bytes spill stores, 0 bytes spill loads" in line, f"{kernel} spills: {line.strip()}")
+        check(len(seen) == 4, f"ptxas reported on {sorted(seen)} in {lib}, expected 4 tensor-core instantiations")
 
 
 def logit_bound(head: list[dict], d_counts: torch.Tensor, scale: float) -> torch.Tensor:
@@ -217,7 +230,7 @@ def main() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas {src}: {line.strip()}")
-    check_wgmma_ptxas(logs.get("flash_attention_bwd"))
+    check_wgmma_ptxas(logs)
 
     # ---- 3. fit + 4. compile ----------------------------------------------
     t0 = time.perf_counter()
@@ -352,10 +365,11 @@ def main() -> None:
         # no single PyTorch call computes the bucket-gated basis bank
         "library_ms": None,
     }
-    kernels = [fpca_entry] + lm_phase(dev, smi)
+    flash_entry, ssd_entry = lm_phase(dev, smi)
     gc.collect()
     torch.cuda.empty_cache()
-    kernels += train_phase(dev, smi)
+    bwd_entries, flash_entry["trained"] = train_phase(dev, smi)
+    kernels = [fpca_entry, flash_entry, ssd_entry] + bwd_entries
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
@@ -474,17 +488,21 @@ def lm_phase(dev: torch.device, smi: str) -> list[dict]:
     # ---- 9. the main path, with the launch counts ----------------------------
     torch.cuda.reset_peak_memory_stats(dev)
     flash_attention_cuda.launches = 0
+    flash_attention_cuda.designs = dict.fromkeys(flash_attention_cuda.designs, 0)
     ssd_intra_chunk_cuda.launches = 0
     res = serve(params, cfg, prompts, batch=LM_BATCH, tokens=LM_TOKENS, device=dev)
     launches = {"flash_attention": flash_attention_cuda.launches,
                 "ssd_intra_chunk": ssd_intra_chunk_cuda.launches}
+    fwd_designs = dict(flash_attention_cuda.designs)
     for i, p_ms in enumerate(res["prefill_ms"]):
         print(f"wave {i}: prefill {p_ms:.1f} ms ({LM_BATCH}x{LM_PROMPT} tokens), {LM_TOKENS - 1} decode steps "
               f"{res['decode_ms'][i]:.1f} ms, launches (flash, ssd) per prefill {res['prefill_launches'][i]}, "
               f"in decode {res['decode_launches'][i]}")
     print(f"served {LM_REQUESTS} requests x {LM_TOKENS} tokens on {smi}: decode {res['decode_tok_s']:.1f} tok/s, "
           f"end to end {res['e2e_tok_s']:.1f} tok/s, max_memory_allocated "
-          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; launches {launches}")
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; launches {launches}, flash designs {fwd_designs}")
+    check(fwd_designs["wgmma"] == launches["flash_attention"],
+          f"flash launches by design {fwd_designs}: every served (bf16) launch must take the tensor-core design")
     n_groups = cfg.n_layers // cfg.hybrid_attn_period
     for i in range(len(res["prefill_ms"])):
         check(res["prefill_launches"][i] == (n_groups, cfg.n_layers),
@@ -530,11 +548,14 @@ def lm_phase(dev: torch.device, smi: str) -> list[dict]:
     sdpa_ms = time_cuda(lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=H != KV))
     f_bytes = q.element_size() * (2 * B * Sq * H * D + 2 * B * Sk * KV * D)
-    f_ops = 4 * D * B * H * live_pairs(Sq, Sk, kw["causal"], kw["window"])
+    f_pairs = B * H * live_pairs(Sq, Sk, kw["causal"], kw["window"])
+    f_ops = 4 * D * f_pairs
     f_tb, f_to = f_bytes / PEAK_BYTES_PER_S * 1e3, f_ops / PEAK_BF16_FLOP_PER_S * 1e3
+    f_rate = flash_rates(flash_ms, f_ops, f_pairs, D)
     print(f"flash at B={B} S={Sq} H={H} KV={KV} D={D} {q.dtype} on {smi}: kernel {flash_ms:.4f} ms, plain "
           f"{flash_plain_ms:.4f} ms, sdpa {sdpa_ms:.4f} ms, bound {max(f_tb, f_to):.4f} ms "
-          f"(bytes {f_tb:.4f}, bf16 ops {f_to:.4f})")
+          f"(bytes {f_tb:.4f}, bf16 ops {f_to:.4f}); achieved {f_rate[0]:.1f} TFLOP/s on the required FLOP, "
+          f"{f_rate[1]:.1f} on the executed FLOP")
 
     b, nc, Q, Hs, P = xbar.shape
     N, G = Bh.shape[-1], cfg.ssm_groups
@@ -581,6 +602,8 @@ def lm_phase(dev: torch.device, smi: str) -> list[dict]:
             "bound_ms": max(f_tb, f_to),
             "bound_by": "bytes" if f_tb >= f_to else "operations",
             "library_ms": sdpa_ms,
+            "tflops_required": f_rate[0],
+            "tflops_executed": f_rate[1],
         },
         {
             "name": "ssd_intra_chunk",
@@ -623,28 +646,40 @@ def capture_first_backward():
         flash_bwd.flash_attention_bwd_cuda = real
 
 
+FLASH_KERNELS = (flash_attention_cuda, flash_attention_dq_cuda, flash_attention_dkdv_cuda)
+
+
 def _launch_counts() -> tuple[int, int, int]:
-    return (flash_attention_cuda.launches, flash_attention_dq_cuda.launches,
-            flash_attention_dkdv_cuda.launches)
+    return tuple(fn.launches for fn in FLASH_KERNELS)
 
 
-def _wgmma_counts() -> tuple[int, int]:
-    """Launches of the dQ and dK/dV kernels that took the tensor-core design."""
-    return flash_attention_dq_cuda.designs["wgmma"], flash_attention_dkdv_cuda.designs["wgmma"]
+def _wgmma_counts() -> tuple[int, int, int]:
+    """Launches of the forward, dQ and dK/dV kernels that took the tensor-core design."""
+    return tuple(fn.designs["wgmma"] for fn in FLASH_KERNELS)
 
 
 def _zero_launch_counts() -> None:
-    flash_attention_cuda.launches = flash_attention_dq_cuda.launches = flash_attention_dkdv_cuda.launches = 0
-    for fn in (flash_attention_dq_cuda, flash_attention_dkdv_cuda):
+    for fn in FLASH_KERNELS:
+        fn.launches = 0
         fn.designs = dict.fromkeys(fn.designs, 0)
+
+
+def flash_rates(ms: float, required: float, pairs: int, d: int) -> tuple[float, float]:
+    """TFLOP/s of a flash forward on the required FLOP and on the FLOP its
+    tensor-core design executes: 3 passes (s, p_hi v, p_lo v) of 2 DP a
+    live pair, the head dim padded to DP = 64 or 128."""
+    dp = 64 if d <= 64 else 128
+    return required / ms / 1e9, 6 * dp * pairs / ms / 1e9
 
 
 def bf16_ulps(top: float, n: int = 2) -> float:
     return n * 2.0 ** (np.floor(np.log2(top)) - 7)
 
 
-def train_phase(dev: torch.device, smi: str) -> list[dict]:
-    """Train qwen3-1.7b at full width; check and time the backward kernels."""
+def train_phase(dev: torch.device, smi: str) -> tuple[list[dict], dict]:
+    """Train qwen3-1.7b at full width; check and time the backward kernels
+    (their ``kernels`` entries) and the forward at the trained shape (the
+    flash entry's ``trained`` numbers)."""
     # ---- 12. the kernel path against the host's plain path, smoke config ----
     small = reduce_for_smoke(ARCHS[TRAIN_ARCH])
     host = init_model(small, generator=torch.Generator().manual_seed(SEED), device="cpu")
@@ -703,11 +738,12 @@ def train_phase(dev: torch.device, smi: str) -> list[dict]:
             on_tensor_cores = tuple(a - b for a, b in zip(_wgmma_counts(), wgmma_before))
             print(f"train step {i + 1}: loss {loss:.4f} grad_norm {gnorm:.4f} lr {lr:.2e} "
                   f"{step_ms[-1]:.1f} ms/step {tokens / step_ms[-1] * 1e3:.0f} tokens/s, "
-                  f"launches (flash fwd, dq, dkdv) {launched}, of which wgmma (dq, dkdv) {on_tensor_cores}")
+                  f"launches (flash fwd, dq, dkdv) {launched}, of which wgmma {on_tensor_cores}")
             check(np.isfinite(loss) and np.isfinite(gnorm), f"step {i + 1}: loss {loss}, grad_norm {gnorm}")
             check(launched == per_step, f"step {i + 1}: launches {launched}, expected {per_step}")
-            check(on_tensor_cores == per_step[1:],
-                  f"step {i + 1}: {on_tensor_cores} dq / dkdv launches took the tensor-core design, expected all")
+            check(on_tensor_cores == per_step,
+                  f"step {i + 1}: {on_tensor_cores} fwd / dq / dkdv launches took the tensor-core design, "
+                  f"expected all")
     launches = dict(zip(("flash_fwd", "dq", "dkdv"), _launch_counts()))
     steady_ms = statistics.median(step_ms[1:])
     mfu = 6 * n_params * tokens / (steady_ms / 1e3) / PEAK_BF16_FLOP_PER_S
@@ -733,11 +769,27 @@ def train_phase(dev: torch.device, smi: str) -> list[dict]:
     causal, window = kw["causal"], kw["window"]
     del seen, captured
     out2, lse2 = flash_attention_cuda(q, k, v, causal=causal, window=window, return_lse=True)
-    _, lse_r = attend_blockwise(q, k, v, causal=causal, window=window, return_lse=True)
+    out_r, lse_r = attend_blockwise(q, k, v, causal=causal, window=window, return_lse=True)
+    torch.cuda.synchronize()
+    diff = (out2.float() - out_r.float()).abs()
+    fwd_err = float(diff.max())
+    fwd_ok = bool((diff <= FLASH_ATOL + FLASH_RTOL * out_r.float().abs()).all())
     lse_err = float((lse2 - lse_r).abs().max())
-    check(torch.equal(out2, out) and lse_err <= LSE_TOL * float(lse_r.abs().max()),
+    print(f"forward kernel vs plain blockwise at the trained shape q {tuple(q.shape)} k {tuple(k.shape)} "
+          f"{q.dtype}: out max|Δ| {fwd_err:.3e} (max|value| {float(out_r.float().abs().max()):.3e}), "
+          f"lse max|Δ| {lse_err:.3e}")
+    check(torch.equal(out2, out), "two forward launches on the same inputs differ")
+    # how far the design change alone moves the trained path's forward
+    out_s, lse_s = simt_forward(q, k, v, causal=causal, window=window)
+    print(f"forward SIMT design vs tensor-core design at the trained shape: out differs in "
+          f"{int((out_s != out2).sum())} of {out2.numel()} elements, max|Δ| "
+          f"{float((out_s.float() - out2.float()).abs().max()):.3e}; lse max|Δ| "
+          f"{float((lse_s - lse2).abs().max()):.3e}")
+    del out_s, lse_s
+    check(fwd_ok, "forward kernel disagrees with its plain version beyond one bf16 ulp at the trained shape")
+    check(lse_err <= LSE_TOL * float(lse_r.abs().max()),
           f"forward LSE disagrees with its plain version (max|Δ| {lse_err:.3e})")
-    del out2, lse2, lse_r
+    del out2, lse2, out_r, lse_r, diff
     delta = attention_delta(out, do)
     dq = flash_attention_dq_cuda(q, k, v, do, lse, delta, causal=causal, window=window)
     dk, dv = flash_attention_dkdv_cuda(q, k, v, do, lse, delta, causal=causal, window=window)
@@ -751,7 +803,6 @@ def train_phase(dev: torch.device, smi: str) -> list[dict]:
               f"{errs[name]:.3e}, max|value| {top:.3e}, two bf16 ulps {bf16_ulps(top):.3e}")
         check(x.dtype == w.dtype and errs[name] <= bf16_ulps(top),
               f"{name} kernel disagrees with its plain version beyond two bf16 ulps of max|value|")
-    print(f"forward LSE at the trained shape vs plain: max|Δ| {lse_err:.3e}")
     del dq, dk, dv, want
 
     # ---- 14d. timings, bounds, library yardstick ----------------------------
@@ -783,14 +834,32 @@ def train_phase(dev: torch.device, smi: str) -> list[dict]:
           f"{bounds['dq'][4]:.3e} FLOP), dkdv kernel {dkdv_ms:.4f} ms (bound {bounds['dkdv'][0]:.4f}: bytes "
           f"{bounds['dkdv'][2]:.4f}, bf16 ops {bounds['dkdv'][3]:.4f}, {bounds['dkdv'][4]:.3e} FLOP), plain "
           f"backward (dq, dk, dv together) {plain_ms:.4f} ms, sdpa backward (dq, dk, dv together) "
-          f"{sdpa_bwd_ms:.4f} ms; forward kernel with LSE at this shape {fwd_ms:.4f} ms, sdpa forward "
-          f"{sdpa_fwd_ms:.4f} ms")
+          f"{sdpa_bwd_ms:.4f} ms")
     # the tensor-core kernels execute 4 passes of 2 D FLOP a live pair (dq:
     # s, dp, ds_hi k, ds_lo k) and 6 (dkdv: s, dp and the hi and lo passes of
     # p^T dO and ds^T q); the bound counts the algorithm's 6 D and 8 D
     for name, kernel_ms, executed in (("dq", dq_ms, 8 * D * pairs), ("dkdv", dkdv_ms, 12 * D * pairs)):
         print(f"{name} kernel achieved {bounds[name][4] / kernel_ms / 1e9:.1f} TFLOP/s on the required FLOP, "
               f"{executed / kernel_ms / 1e9:.1f} TFLOP/s on the executed FLOP ({executed:.3e}), on {smi}")
+    # the forward at the trained shape: q, k, v read, out and the lse written
+    fwd_ops = 4 * D * pairs
+    fwd_tb = (el * (2 * B * Sq * H * D + 2 * B * Sk * KV * D) + 4 * B * H * Sq) / PEAK_BYTES_PER_S * 1e3
+    fwd_to = fwd_ops / PEAK_BF16_FLOP_PER_S * 1e3
+    fwd_rate = flash_rates(fwd_ms, fwd_ops, pairs, D)
+    print(f"forward kernel with LSE at B={B} S={Sq} H={H} KV={KV} D={D}: {fwd_ms:.4f} ms, bound "
+          f"{max(fwd_tb, fwd_to):.4f} ms (bytes {fwd_tb:.4f}, bf16 ops {fwd_to:.4f}), sdpa forward {sdpa_fwd_ms:.4f} "
+          f"ms; achieved {fwd_rate[0]:.1f} TFLOP/s on the required FLOP, {fwd_rate[1]:.1f} on the executed FLOP, "
+          f"on {smi}")
+    trained_fwd = {
+        "shape": [B, Sq, H, KV, D],
+        "launches": launches["flash_fwd"],
+        "max_abs_err": fwd_err,
+        "ms": fwd_ms,
+        "bound_ms": max(fwd_tb, fwd_to),
+        "library_ms": sdpa_fwd_ms,
+        "tflops_required": fwd_rate[0],
+        "tflops_executed": fwd_rate[1],
+    }
 
     def entry(name, kernel_ms, err, line):
         bound, by = bounds[name][:2]
@@ -810,7 +879,27 @@ def train_phase(dev: torch.device, smi: str) -> list[dict]:
             "library_ms": sdpa_bwd_ms,
         }
 
-    return [entry("dq", dq_ms, errs["dq"], 46), entry("dkdv", dkdv_ms, max(errs["dk"], errs["dv"]), 87)]
+    return [entry("dq", dq_ms, errs["dq"], 46), entry("dkdv", dkdv_ms, max(errs["dk"], errs["dv"]), 87)], trained_fwd
+
+
+def simt_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+                 window: int | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel's SIMT design (the bf16 path before the tensor-core
+    design) with LSE, launched through the C entry point so that no launch
+    counter moves: it shows how the two designs' roundings differ and is no
+    part of the main path."""
+    B, Sq, H, D = q.shape
+    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    err = flash_fwd._launcher()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        flash_fwd._DTYPES[q.dtype], B, Sq, k.shape[1], H, k.shape[2], D,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        int(causal), 0 if window is None else int(window), D**-0.5, 0,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    check(err == 0, f"SIMT forward launch failed with CUDA error {err}")
+    return out, lse
 
 
 def _leaves(tree: dict):

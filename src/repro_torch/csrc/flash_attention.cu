@@ -1,9 +1,14 @@
 // Flash-attention forward for Hopper (sm_90a): online softmax over key
-// tiles, GQA, causal and sliding-window masks, whole-tile skipping.
+// tiles, GQA, causal and sliding-window masks, whole-tile skipping, in two
+// designs: a tensor-core design for bf16 (D % 16 == 0, D <= 128, rows 16-byte
+// aligned) and a SIMT design for everything else (f32, fp16, other D).  The
+// wrapper (kernels/flash_attention/kernel.py) picks the design by those rules
+// (kernel.py::design) and passes the choice in.
 //
-// Replaces the TPU kernel repro/kernels/flash_attention/kernel.py::_flash_kernel
-// (launched by flash_attention_pallas).  The plain PyTorch version of the
-// same function is repro_torch/kernels/flash_attention/ref.py::flash_attention_ref
+// Both designs replace the TPU kernel
+// repro/kernels/flash_attention/kernel.py::_flash_kernel (launched by
+// flash_attention_pallas).  The plain PyTorch version of the same function is
+// repro_torch/kernels/flash_attention/ref.py::flash_attention_ref
 // (repro_torch/models/attention.py::attend_blockwise above 2048 tokens).
 //
 // What it computes, per (batch b, query head h, query row i):
@@ -18,34 +23,68 @@
 //   5 registers and 8% at the served zamba2 shape on the H100).
 // Inputs are read through their (batch, seq, head) strides, so the model's
 // (B, S, H, D) layout is used as it is; only the head dim must be unit-stride.
+// Neither design uses atomics: the same inputs give bit-identical outputs.
 //
 // What bounds it on this card: at the served zamba2-7b shape (B=4, S=4096,
 // H=KV=32, D=112, bf16, causal) the two products are 4.8e11 FLOP against
 // 0.47 GB of q/k/v/out, about 1,000 FLOP per byte, so it is bound by
-// arithmetic.  The 989 TFLOP/s bf16 tensor-core rate is the card's bound,
-// but this first design does not use tensor cores: the TPU kernel upcasts
-// q, k, v and keeps P in f32 (kernel.py:67-69), and a bf16 tensor-core PV
-// product would round P to bf16.  So both products are IEEE f32 FMAs on
-// CUDA cores (67 TFLOP/s peak), and the design keeps every operand on chip
-// and reads q/k/v once per (query tile, key tile): a block of 256 threads
-// owns 64 query rows of one head, stages them in shared memory once, then
-// walks 64-key tiles of K (transposed) and V through shared memory.  Each
-// thread owns a 4 x 4 patch of the 64 x 64 score tile and a 4-row x
-// DPT-column patch of the output accumulator (both in registers); the
-// row max and row sum are reduced across the 16 lanes that share a row
-// with warp shuffles.  Tiles wholly in the future (causal) or wholly before
-// the window are skipped, as kernel.py:57-63 does.  Tensor cores (wgmma
-// with P kept in f32 via split products) and TMA staging are later work.
+// arithmetic, and the 989 TFLOP/s bf16 tensor-core rate is the card's bound
+// (the trained qwen3-1.7b shape, D = 128 and GQA 16/8, likewise).
 //
-// Numerics: f32 throughout, expf (no --use_fast_math), final acc / l with
-// l clamped at 1e-30 as the TPU kernel does.  The mask value and the
-// initial running max are -1e30, not -inf: a row whose keys in a tile are
-// all masked gets exp(0) = 1 junk that the next live tile's correction
-// factor exp(-1e30 - m) = 0 wipes; with -inf it would be NaN.
+// The tensor-core design (namespace tc; the staging, descriptor, wgmma and
+// fragment helpers and the query block's key walk, tc::KeyWalk, are shared
+// with the backward's dQ kernel in hopper_tc.cuh).  The TPU
+// kernel upcasts q, k, v and keeps p in f32 (kernel.py:67-69).  q and k
+// arrive in bf16 and a bf16 x bf16 product is exact in f32, so s = q k^T
+// runs as bf16 wgmma with an f32 accumulator and differs from f32 FMAs only
+// in summation order.  p is f32 and a bf16 p would round it to 2^-9, so
+// p . v splits p into p_hi = bf16(p) and p_lo = bf16(p - p_hi) and runs both
+// halves as wgmma into one f32 accumulator: p_hi + p_lo holds p to about
+// 2^-17, far below the bf16 rounding of the output.  So the kernel executes
+// 3 passes of 2 D FLOP a live pair for the algorithm's 2.  A block of two
+// warpgroups owns 128 query rows of one head; Q stays in shared memory.  It
+// walks 64-key tiles of K and V through a two-stage ring filled by cp.async
+// (issued one tile ahead).  Per tile and warpgroup (64 rows): s as SS wgmma
+// m64n64k16 (both K-major); scale, mask (per element only on tiles that
+// cross the causal diagonal, the window's edge or a ragged end: the tile
+// body, tc::fwd_tile, is instantiated with and without the mask), the
+// running max and sum on the accumulator fragments (a row's 64 scores lie
+// in the 4 lanes of a quad: two shuffles), corr rescales the output
+// accumulator, then acc += p_hi V + p_lo V as RS wgmma m64n(DP)k16: A is the
+// score accumulator re-packed as bf16 (its fragment layout is the A
+// layout), B the staged V tile read MN-major.  A warpgroup skips tiles wholly
+// in the future or before the window; the last query tile, which sees the
+// most keys under a causal mask, is launched first.  Shared memory pads the
+// head dim with zeros to DP = 64 (D <= 64) or 128: zero columns add exact
+// zeros to s and the padded output columns are never stored.  At the served
+// D = 112 that is 12.5% of the products spent on padding (an m64n112
+// accumulation would save the p . v part of it).  About 97 KB of shared
+// memory and 256 threads a block: one block an SM.
+//
+// The SIMT design (f32, fp16, a D that is not a multiple of 16, unaligned
+// rows, and the smoke configs' f32 paths) does both products as IEEE f32 FMAs
+// on CUDA cores (67 TFLOP/s peak) and keeps every operand on chip, reading
+// q/k/v once per (query tile, key tile): a block of 256 threads owns 64
+// query rows of one head, stages them in shared memory once, then walks
+// 64-key tiles of K (transposed) and V through shared memory.  Each thread
+// owns a 4 x 4 patch of the 64 x 64 score tile and a 4-row x DPT-column
+// patch of the output accumulator (both in registers); the row max and row
+// sum are reduced across the 16 lanes that share a row with warp shuffles.
+// Tiles wholly in the future (causal) or wholly before the window are
+// skipped, as kernel.py:57-63 does.
+//
+// Numerics, both designs: f32 softmax, expf (no --use_fast_math), final
+// acc / l with l clamped at 1e-30 as the TPU kernel does.  The mask value
+// and the initial running max are -1e30, not -inf: a row whose keys in a
+// tile are all masked gets exp(0) = 1 junk that the next live tile's
+// correction factor exp(-1e30 - m) = 0 wipes; with -inf it would be NaN.
 
+#include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include "hopper_tc.cuh"
 
 namespace {
 
@@ -54,26 +93,6 @@ constexpr int kBK = 64;            // keys per tile
 constexpr int kThreads = 256;      // a 16 x 16 thread grid
 constexpr int kRows = kBQ / 16;    // query rows per thread: ty + 16 * i
 constexpr int kCols = kBK / 16;    // keys per thread: tx + 16 * j
-constexpr int kMaxD = 128;
-constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) { return __float2bfloat16(x); }
-template <>
-__device__ __forceinline__ __half from_f<__half>(float x) { return __float2half(x); }
-
-struct Strides {
-  long long b, s, h;   // elements; the head dim is unit-stride
-};
-
 // DPT output dims per thread (tx + 16 * dd), so D <= 16 * DPT; kLse: write lse.
 template <typename T, int DPT, bool kLse>
 __global__ void __launch_bounds__(kThreads)
@@ -255,23 +274,178 @@ cudaError_t launch_dpt(const void* q, const void* k, const void* v, void* out, f
   return launch_typed<T, 8>(q, k, v, out, lse, B, Sq, Sk, H, KV, D, qs, ks, vs, causal, window, scale, stream);
 }
 
+// ===========================================================================
+// The tensor-core design: bf16 inputs, D % 16 == 0, D <= 128
+// ===========================================================================
+struct Problem {
+  int Sq, Sk, H, KV, D;
+  Strides qs, ks, vs;
+  int causal, window;  // window <= 0: none
+  float scale;
+};
+
+namespace tc {
+
+// the max (kMax) or sum of x over the 4 lanes of a quad, which hold one
+// accumulator row between them
+template <bool kMax>
+__device__ __forceinline__ float quad_reduce(float x) {
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    const float y = __shfl_xor_sync(0xffffffffu, x, off);
+    x = kMax ? fmaxf(x, y) : x + y;
+  }
+  return x;
+}
+
+// One key tile [k0, k0 + 64) of one warpgroup: s = Q K^T as SS wgmma, scale,
+// mask, the online softmax on the accumulator fragments, then
+// acc += p_hi V + p_lo V as RS wgmma.  kEdge: the tile crosses the causal
+// diagonal, the window's edge or a ragged end, so the mask is evaluated per
+// element; the kernel instantiates both, so a tile with no edge carries none
+// of those tests (as one body with a runtime test, nvcc predicated the 32
+// tests into every tile).
+template <int DP, bool kEdge>
+__device__ __forceinline__ void fwd_tile(const Problem& P, uint32_t sQ, uint32_t tK, uint32_t tV, int wg,
+                                         int row, int k0, int lane, float (&m)[2], float (&l)[2],
+                                         float (&acc)[DP / 2]) {
+  float s[32];
+  issue_scores<DP>(s, sQ, 64 * wg, tK);
+  wgmma_commit();
+  wgmma_wait_all();
+  pin(s);
+  float row_max[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    float sv = s[j] * P.scale;
+    if (kEdge && !live_pair(P, row + frag_row(j), k0 + frag_col(j, lane))) sv = kNegInf;
+    s[j] = sv;
+    row_max[(j >> 1) & 1] = fmaxf(row_max[(j >> 1) & 1], sv);
+  }
+  float corr[2], row_sum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float m_new = fmaxf(m[i], quad_reduce<true>(row_max[i]));
+    corr[i] = expf(m[i] - m_new);
+    m[i] = m_new;
+  }
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    s[j] = expf(s[j] - m[(j >> 1) & 1]);   // p
+    row_sum[(j >> 1) & 1] += s[j];
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + quad_reduce<false>(row_sum[i]);
+#pragma unroll
+  for (int j = 0; j < DP / 2; ++j) acc[j] *= corr[(j >> 1) & 1];
+  uint32_t hi[16], lo[16];
+  split(s, hi, lo);
+  wgmma_fence();
+  issue_accumulate(acc, hi, lo, tV);   // acc += p_hi . V + p_lo . V
+  wgmma_commit();
+  wgmma_wait_all();
+  pin(acc);
+  pin(hi);
+  pin(lo);
+}
+
+// ---------------------------------------------------------------------------
+// grid (ceil(Sq / 128), H, B); a block owns 128 query rows of one head
+// ---------------------------------------------------------------------------
+template <int DP, bool kLse>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                bf16* __restrict__ out, float* __restrict__ lse, Problem P) {
+  extern __shared__ uint8_t smem_raw[];
+  constexpr uint32_t kStatBytes = kRows * DP * 2;
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;   // then the walk's K and V ring
+
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
+  const int D = P.D, h = blockIdx.y, b = blockIdx.z;
+  const KeyWalk<DP> walk(P, k, v, sQ + kStatBytes, tid);
+  const int row = walk.row;   // this thread's rows: row, row + 8
+
+  load_tile<kRows, DP>(sQ, q + b * P.qs.b + h * P.qs.h, P.qs.s, walk.q0, P.Sq, D, tid);
+  walk.start(P, tid);
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+  float acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.0f;
+
+  for (int it = 0; it < walk.n_items; ++it) {
+    walk.advance(P, it, tid);
+    const int k0 = walk.key0(it);
+    if (!walk.skip(P, k0)) {
+      const uint32_t tK = walk.k_tile(it), tV = walk.v_tile(it);
+      if (walk.edge(P, k0))
+        fwd_tile<DP, true>(P, sQ, tK, tV, wg, row, k0, lane, m, l, acc);
+      else
+        fwd_tile<DP, false>(P, sQ, tK, tV, wg, row, k0, lane, m, l, acc);
+    }
+    __syncthreads();   // both warpgroups are done with this stage before it is refilled
+  }
+  cp_async_wait<0>();
+
+  float denom[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) denom[i] = fmaxf(l[i], 1e-30f);
+#pragma unroll
+  for (int j = 0; j < DP / 2; ++j) acc[j] = acc[j] / denom[(j >> 1) & 1];
+  if constexpr (kLse) {
+    // m and l are the same in the 4 lanes of a quad (butterfly reductions)
+    const long long row_base = (static_cast<long long>(b) * P.H + h) * P.Sq;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if ((lane & 3) == 0 && row + 8 * i < P.Sq) lse[row_base + row + 8 * i] = m[i] + logf(denom[i]);
+  }
+  store_rows<DP>(acc, out + ((static_cast<long long>(b) * P.Sq) * P.H + h) * D, static_cast<long long>(P.H) * D,
+                 row, P.Sq, D, lane);
+}
+
+template <int DP>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                   const Problem& P, cudaStream_t st) {
+  const size_t smem = 1024 + static_cast<size_t>(kRows) * DP * 2 + 2 * kStages * kStream * DP * 2;
+  auto kernel = lse != nullptr ? flash_fwd_wgmma<DP, true> : flash_fwd_wgmma<DP, false>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const dim3 grid((P.Sq + kRows - 1) / kRows, P.H, B);
+  kernel<<<grid, kThreads, smem, st>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                                       static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, P);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16, 2 float16 (q, k, v and out share it).
 // lse: null, or (B, H, Sq) contiguous f32.  window <= 0 means no window.
-// Strides are in elements.  Launches on `stream`; returns
-// cudaGetLastError() (0 on success).
+// Strides are in elements.  tensor_cores: 1 launches the wgmma design (which
+// takes only what tc::wgmma_takes accepts, else returns cudaErrorInvalidValue),
+// 0 the SIMT design.  Launches on `stream`; returns cudaGetLastError() (0 on
+// success).
 extern "C" int flash_attention_fwd_launch(const void* q, const void* k, const void* v, void* out,
                                           float* lse, int dtype, int B, int Sq, int Sk, int H, int KV, int D,
                                           long long q_sb, long long q_ss, long long q_sh,
                                           long long k_sb, long long k_ss, long long k_sh,
                                           long long v_sb, long long v_ss, long long v_sh,
-                                          int causal, int window, float scale, void* stream) {
+                                          int causal, int window, float scale, int tensor_cores,
+                                          void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || KV < 1 || H < KV || H % KV != 0 || D < 1 || D > kMaxD ||
       H > 65535 || B > 65535)
     return cudaErrorInvalidValue;
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tensor_cores) {
+    const void* ptrs[3] = {q, k, v};
+    const long long strides[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
+    if (!tc::wgmma_takes(ptrs, dtype, D, strides)) return cudaErrorInvalidValue;
+    const Problem P{Sq, Sk, H, KV, D, qs, ks, vs, causal, window, scale};
+    return D <= 64 ? tc::launch<64>(q, k, v, out, lse, B, P, st) : tc::launch<128>(q, k, v, out, lse, B, P, st);
+  }
   switch (dtype) {
     case 0:
       return launch_dpt<float>(q, k, v, out, lse, B, Sq, Sk, H, KV, D, qs, ks, vs, causal, window, scale, st);

@@ -2,10 +2,12 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/kernels/<name>-<hash>.so`` at the root
-of the checkout (git-ignored).  The hash covers the source and the flags, so
-an edited source rebuilds and an unchanged one is loaded as it is.  Nothing
-is built on import: the first launch builds, or :func:`build` builds every
-source at once, one ``nvcc`` process each, all started together.
+of the checkout (git-ignored).  The hash covers the source, every shared
+header ``csrc/*.cuh`` (a source may include any of them) and the flags, so
+an edited source or header rebuilds and an unchanged one is loaded as it
+is.  Nothing is built on import: the first launch builds, or :func:`build`
+builds every source at once, one ``nvcc`` process each, all started
+together.
 """
 
 from __future__ import annotations
@@ -42,8 +44,11 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` is built."""
-    source = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

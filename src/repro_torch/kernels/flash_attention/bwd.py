@@ -8,7 +8,8 @@ CPU tensors each takes the plain version :func:`bwd_ref.flash_attention_bwd_ref`
 The kernels read q, k, v and dO through their strides (the head dim must be
 unit-stride) and write contiguous gradients in the inputs' dtype.
 
-Each kernel has two designs in the one source, chosen by :func:`design`:
+Each kernel has two designs in the one source, chosen by
+:func:`~repro_torch.kernels.flash_attention.kernel.design`, as the forward's:
 ``"wgmma"`` (bf16 tensor cores, p and ds split into bf16 hi + lo parts) for
 bf16 inputs with ``D % 16 == 0`` and 16-byte-aligned rows, ``"simt"`` (f32
 FMAs on CUDA cores) for everything else.  The choice is made before the
@@ -24,11 +25,9 @@ import functools
 import torch
 
 from repro_torch.kernels.flash_attention.bwd_ref import attention_delta, flash_attention_bwd_ref
-from repro_torch.kernels.flash_attention.kernel import _DTYPES, _check
+from repro_torch.kernels.flash_attention.kernel import _DTYPES, DESIGNS, _check, design
 
 __all__ = ["design", "flash_attention_bwd_cuda", "flash_attention_dq_cuda", "flash_attention_dkdv_cuda"]
-
-DESIGNS = ("wgmma", "simt")
 
 
 @functools.cache
@@ -57,17 +56,6 @@ def _check_bwd(q, k, v, do, lse, delta, window) -> None:
         if t.shape != (B, H, Sq) or t.dtype != torch.float32 or not t.is_contiguous() or t.device != q.device:
             raise ValueError(f"{name} must be contiguous float32 {(B, H, Sq)} on {q.device}, got "
                              f"{tuple(t.shape)} {t.dtype}")
-
-
-def design(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor) -> str:
-    """The kernel design a launch on these inputs takes: ``"wgmma"`` for
-    bf16 with ``D % 16 == 0`` (D <= 128 is checked before) and every row of
-    q, k, v and dO 16-byte aligned (the kernels stage rows by 16-byte
-    copies), ``"simt"`` otherwise."""
-    if q.dtype != torch.bfloat16 or q.shape[3] % 16:
-        return "simt"
-    aligned = all(t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:3]) for t in (q, k, v, do))
-    return "wgmma" if aligned else "simt"
 
 
 def _args(q, k, v, do, lse, delta, causal, window):

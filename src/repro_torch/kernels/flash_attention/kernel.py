@@ -6,6 +6,14 @@ plain PyTorch version :func:`ref.flash_attention_ref`.  The kernel reads q,
 k and v in the model's (B, S, heads, D) layout through their strides (the
 head dim must be unit-stride) and writes a contiguous output in q's dtype
 and, for training, the row log-sum-exp the backward kernels take.
+
+The kernel has two designs in the one source, chosen by :func:`design`:
+``"wgmma"`` (bf16 tensor cores, p split into bf16 hi + lo parts for p·V)
+for bf16 inputs with ``D % 16 == 0`` and 16-byte-aligned rows, ``"simt"``
+(f32 FMAs on CUDA cores) for everything else.  The choice is made before
+the launch, never after a failure; a failed launch raises.  Beside
+``.launches`` the wrapper counts its launches per design in ``.designs``.
+The backward kernels (:mod:`.bwd`) choose by the same rule.
 """
 
 from __future__ import annotations
@@ -17,9 +25,10 @@ import torch
 
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-__all__ = ["flash_attention_cuda", "MAX_HEAD_DIM"]
+__all__ = ["design", "flash_attention_cuda", "MAX_HEAD_DIM", "DESIGNS"]
 
 MAX_HEAD_DIM = 128
+DESIGNS = ("wgmma", "simt")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
@@ -30,7 +39,7 @@ def _launcher() -> ctypes._CFuncPtr:
     fn = _build.load("flash_attention").flash_attention_fwd_launch
     fn.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 9
-        + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return fn
@@ -63,6 +72,18 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int | None
         raise ValueError(f"window must be >= 1, got {window}")
 
 
+def design(*tensors: torch.Tensor) -> str:
+    """The kernel design a launch on these inputs (q, k, v, and dO for the
+    backward) takes: ``"wgmma"`` for bf16 with ``D % 16 == 0`` (D <= 128 is
+    checked before) and every row of every input 16-byte aligned (the
+    kernels stage rows by 16-byte copies), ``"simt"`` otherwise."""
+    q = tensors[0]
+    if q.dtype != torch.bfloat16 or q.shape[3] % 16:
+        return "simt"
+    aligned = all(t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:3]) for t in tensors)
+    return "wgmma" if aligned else "simt"
+
+
 def flash_attention_cuda(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -80,7 +101,8 @@ def flash_attention_cuda(
     :func:`repro_torch.models.attention.attend_blockwise`).  A CPU ``q``
     takes :func:`flash_attention_ref`; a CUDA one launches the kernel on the
     current stream, or raises.  Every launch adds one to
-    ``flash_attention_cuda.launches``.
+    ``flash_attention_cuda.launches`` and to its design's count in
+    ``flash_attention_cuda.designs`` (:func:`design`).
     """
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window, return_lse=return_lse)
@@ -89,19 +111,22 @@ def flash_attention_cuda(
     Sk, KV = k.shape[1], k.shape[2]
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if return_lse else None
+    chosen = design(q, k, v)
     with torch.cuda.device(q.device):
         err = _launcher()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(),
             _DTYPES[q.dtype], B, Sq, Sk, H, KV, D,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            int(causal), 0 if window is None else int(window), D**-0.5,
+            int(causal), 0 if window is None else int(window), D**-0.5, int(chosen == "wgmma"),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err:
-        raise RuntimeError(f"flash_attention kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"flash_attention kernel ({chosen}) launch failed with CUDA error {err}")
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.designs[chosen] += 1
     return (out, lse) if return_lse else out
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.designs = dict.fromkeys(DESIGNS, 0)

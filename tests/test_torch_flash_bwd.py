@@ -31,6 +31,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_dq_cuda,
 )
 from repro_torch.kernels.flash_attention.bwd import design
+from repro_torch.kernels.flash_attention.kernel import design as fwd_design
 from repro_torch.kernels.flash_attention.bwd_ref import attention_delta
 from repro_torch.models import attention as pattn
 
@@ -226,7 +227,21 @@ def _design_case(dtype, d, offset):
     (torch.float32, 128, 0, "simt"),
     (torch.float16, 64, 0, "simt"),
     (torch.bfloat16, 64, 1, "simt"),     # q's rows not 16-byte aligned
+    (torch.bfloat16, 112, 0, "wgmma"),   # the served head dim (padded to 128 on the card)
+    (torch.bfloat16, 64, 0, "wgmma"),
+    (torch.bfloat16, 16, 0, "wgmma"),
+    (torch.bfloat16, 112, 8, "wgmma"),   # an offset of 16 bytes keeps the rows aligned
+    (torch.bfloat16, 128, 4, "simt"),    # 8 bytes does not
+    (torch.float32, 64, 0, "simt"),
 ])
 def test_backward_design_choice(dtype, d, offset, want):
-    """The wrappers' dispatch rule, decided from the inputs before a launch."""
-    assert design(*_design_case(dtype, d, offset)) == want
+    """The wrappers' dispatch rule, decided from the inputs before a launch:
+    the backward's on (q, k, v, dO), the forward's (the same rule, in
+    ``kernel.py``) on (q, k, v)."""
+    q, k, v, do = _design_case(dtype, d, offset)
+    assert design(q, k, v, do) == want
+    assert fwd_design(q, k, v) == want
+    # a misaligned k or v alone sends both to the SIMT design
+    if want == "wgmma":
+        odd = torch.zeros(k.numel() + 1, dtype=dtype)[1:].view(k.shape)
+        assert design(q, odd, v, do) == fwd_design(q, k, odd) == "simt"

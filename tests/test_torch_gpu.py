@@ -11,7 +11,9 @@ Tolerances, each kernel against its plain PyTorch version on the card:
 - flash attention: float32 within 1e-4 (f32 sums in another order); bf16
   and fp16 within one unit in the last place of the output type
   (rtol 2**-7 resp. 2**-10, plus 1e-4): both sides compute in f32 and round
-  once, so two f32 results a few ulp apart may round to neighbours.
+  once, so two f32 results a few ulp apart may round to neighbours.  The
+  bf16 tensor-core design holds the same limit: its s products are exact
+  in f32 and its split p keeps p to about 2**-17.
 - SSD intra-chunk: max|diff| <= 2e-5 * max|want| (f32 sums of up to 128
   products taken in another order).
 - flash backward (dQ, dK/dV) and the forward's LSE, normwise against the
@@ -41,6 +43,7 @@ from repro_torch.kernels.flash_attention.bwd import (
 )
 from repro_torch.kernels.flash_attention.bwd_ref import attention_delta, flash_attention_bwd_ref
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.fpca_conv.kernel import (
     conv_tables,
     fpca_conv_basis,
@@ -142,6 +145,12 @@ def test_compiled_model_launches_the_kernel_and_matches_basis(cuda, model):
 _FLASH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2**-7, 1e-4), torch.float16: (2**-10, 1e-4)}
 
 
+def _fwd_designs_after(fn):
+    before = dict(flash_attention_cuda.designs)
+    result = fn()
+    return result, {k: flash_attention_cuda.designs[k] - before[k] for k in before}
+
+
 def _qkv(b, sq, sk, h, kv, d, dtype, dev, seed=0):
     g = torch.Generator().manual_seed(seed)
     q = torch.randn((b, sq, h, d), generator=g).to(dev, dtype)
@@ -160,30 +169,77 @@ def _qkv(b, sq, sk, h, kv, d, dtype, dev, seed=0):
         (2, 130, 130, 4, 4, 112, True, None),    # the served head dim, ragged
         (1, 77, 333, 2, 1, 16, False, 50),       # Sq != Sk, window without causal
         (1, 333, 77, 2, 2, 112, True, None),     # Sq > Sk, causal
+        (1, 150, 150, 4, 2, 40, True, None),     # D = 40 (not a multiple of 16): SIMT in bf16 too
     ],
 )
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_flash_kernel_matches_plain_version(cuda, b, sq, sk, h, kv, d, causal, window, dtype):
     q, k, v = _qkv(b, sq, sk, h, kv, d, dtype, cuda, seed=sq + d)
-    before = flash_attention_cuda.launches
+    before, designs_before = flash_attention_cuda.launches, dict(flash_attention_cuda.designs)
     got = flash_attention_cuda(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert flash_attention_cuda.launches == before + 1
+    chosen = _expected_design(dtype, d)
+    assert flash_attention_cuda.designs[chosen] == designs_before[chosen] + 1
     want = attend_blockwise(q, k, v, causal=causal, window=window)
     assert got.dtype == dtype and got.shape == (b, sq, h, d)
     rtol, atol = _FLASH_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
 
 
-def test_flash_kernel_reads_strided_heads(cuda):
-    """q/k/v as column slices of one packed projection, fp16."""
-    qkv = torch.randn((2, 150, 3 * 4 * 64), device=cuda, dtype=torch.float16)
-    q, k, v = (t.reshape(2, 150, 4, 64) for t in qkv.split(4 * 64, dim=-1))
+@pytest.mark.parametrize("dtype,d", [(torch.float16, 64), (torch.bfloat16, 64), (torch.bfloat16, 112)])
+def test_flash_kernel_reads_strided_heads(cuda, dtype, d):
+    """q/k/v as column slices of one packed projection; in bf16 every row
+    stays 16-byte aligned, so the wgmma design takes them."""
+    qkv = torch.randn((2, 150, 3 * 4 * d), device=cuda, dtype=dtype)
+    q, k, v = (t.reshape(2, 150, 4, d) for t in qkv.split(4 * d, dim=-1))
     assert not q.is_contiguous()
-    got = flash_attention_cuda(q, k, v)
+    got, took = _fwd_designs_after(lambda: flash_attention_cuda(q, k, v))
+    assert took[_expected_design(dtype, d)] == 1
     want = attend_blockwise(q, k, v)
-    rtol, atol = _FLASH_TOL[torch.float16]
+    rtol, atol = _FLASH_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+FWD_TC_GRID = [
+    (1, 256, 256, 4, 4, 64, True, None),       # MHA causal, whole tiles, D = 64
+    (2, 300, 300, 16, 8, 128, True, None),     # the trained GQA heads, ragged Sq
+    (2, 200, 200, 4, 4, 112, True, None),      # the served head dim (padded to 128), ragged
+    (1, 333, 333, 4, 2, 112, True, 100),       # sliding window, ragged
+    (1, 130, 130, 16, 8, 128, False, None),    # bidirectional
+    (1, 77, 333, 2, 1, 64, False, 50),         # Sq != Sk, window without causal
+    (1, 333, 77, 2, 2, 128, True, None),       # Sq > Sk, causal
+    (1, 1100, 1100, 16, 8, 128, True, 300),    # many tiles, heaviest first, window
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,window", FWD_TC_GRID)
+@pytest.mark.parametrize("return_lse", [False, True])
+def test_flash_tensor_core_kernel_matches_plain_version(cuda, b, sq, sk, h, kv, d, causal, window, return_lse):
+    """bf16 with D % 16 == 0 takes the wgmma design and stays within one
+    bf16 ulp of the plain version (its LSE within 1e-5 of max|value|)."""
+    q, k, v = _qkv(b, sq, sk, h, kv, d, torch.bfloat16, cuda, seed=sq + d + 1)
+    got, took = _fwd_designs_after(
+        lambda: flash_attention_cuda(q, k, v, causal=causal, window=window, return_lse=return_lse))
+    assert took == {"wgmma": 1, "simt": 0}
+    want, lse_r = flash_attention_ref(q, k, v, causal=causal, window=window, return_lse=True)
+    out = got[0] if return_lse else got
+    assert out.dtype == torch.bfloat16 and out.shape == (b, sq, h, d)
+    torch.testing.assert_close(out.float(), want.float(), rtol=2**-7, atol=1e-4)
+    if return_lse:
+        assert got[1].shape == (b, h, sq) and got[1].dtype == torch.float32
+        _bwd_close(got[1], lse_r, "lse")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_forward_is_deterministic(cuda, dtype):
+    """No atomics: two launches on the same inputs give the same bits."""
+    q, k, v = _qkv(2, 300, 300, 16, 8, 128, dtype, cuda, seed=13)
+    first = flash_attention_cuda(q, k, v, window=200, return_lse=True)
+    second = flash_attention_cuda(q, k, v, window=200, return_lse=True)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("out", "lse"), first, second):
+        assert torch.equal(x, y), name
 
 
 def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
