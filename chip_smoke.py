@@ -23,13 +23,14 @@ then the language-model serving path (``repro_torch.launch.serve``):
    seeded CUDA generator;
 9. serves 8 requests of 4096 random tokens in waves of 4, 32 greedy tokens
    each, and checks the launch counts: 13 flash-attention and 81 SSD
-   launches per prefill, none in decode, every flash launch on the forward's
-   tensor-core design; tokens in range, logits finite;
+   launches per prefill, none in decode, every flash and every SSD launch
+   on its kernel's tensor-core design; tokens in range, logits finite;
 10. holds the port's kernel path against its plain versions on the host on
    the narrow smoke config (f32), and each LM kernel against its plain
    version at the served shapes, on inputs captured from a served prefill;
 11. times each LM kernel, its plain version, its bound and the library call
-   that computes the same function, and profiles one prefill;
+   that computes the same function (and the SSD kernel's SIMT design beside
+   its tensor-core design), and profiles one prefill;
 
 then, with zamba2's weights freed, the training path
 (``repro_torch.training.train_step``):
@@ -51,8 +52,8 @@ then, with zamba2's weights freed, the training path
    their achieved TFLOP/s, times the forward kernel and SDPA's forward at
    that shape with its achieved TFLOP/s, and profiles one step.  Every bf16
    forward, dQ and dK/dV launch of a step must take the tensor-core design,
-   and ptxas must report no spill for any tensor-core kernel (printed after
-   the build).
+   and ptxas must report no spill for any tensor-core kernel, flash or SSD
+   (printed after the build).
 
 It prints one JSON line ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {...}}``; a failed phase exits non-zero before
@@ -98,6 +99,7 @@ from repro_torch.kernels.flash_attention.bwd import (  # noqa: E402
 from repro_torch.kernels.flash_attention.bwd_ref import attention_delta, flash_attention_bwd_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as flash_fwd  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda  # noqa: E402
+from repro_torch.kernels.ssd import kernel as ssd_kernel  # noqa: E402
 from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_cuda  # noqa: E402
 from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref  # noqa: E402
@@ -116,6 +118,9 @@ BATCHES = (1, 64, 256)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
 PEAK_BF16_FLOP_PER_S = 989e12
+# bf16 wgmma passes of the SSD kernel's tensor-core design per product: each
+# f32 operand split into three bf16 parts, six products of parts
+SSD_PASSES = 6
 COUNT_TOL, FLIP_TOL = 1.0, 0.05   # <= 1 ADC count, < 5% of counts off
 
 # LM serving path: zamba2-7b at full width, 8 requests of 4096 tokens in
@@ -172,17 +177,21 @@ def time_cuda(fn, iters: int = 20, flush_bytes: int = 128 << 20) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-# the tensor-core kernels of each flash library; each has 4 instantiations
-# (the forward: DP 64 / 128 x with and without the LSE; dQ and dK/dV: DP 64 / 128)
-WGMMA_KERNELS = {"flash_attention": ("flash_fwd_wgmma",),
-                 "flash_attention_bwd": ("flash_bwd_dq_wgmma", "flash_bwd_dkdv_wgmma")}
+# the tensor-core kernels of each library, the template width they are
+# instantiated over and the number of instantiations: the forward DP 64 /
+# 128 x with and without the LSE, dQ and dK/dV DP 64 / 128, SSD N 64 / 128
+WGMMA_KERNELS = {"flash_attention": (("flash_fwd_wgmma",), "D", 4),
+                 "flash_attention_bwd": (("flash_bwd_dq_wgmma", "flash_bwd_dkdv_wgmma"), "D", 4),
+                 "ssd_intra_chunk": (("ssd_tc_kernel",), "N", 2)}
 
 
 def check_wgmma_ptxas(logs: dict[str, str]) -> None:
     """Print ptxas's register and spill lines of the tensor-core kernels;
-    fail on a spill.  A library missing from ``logs`` was already built
-    (nothing to read)."""
-    for lib, names in WGMMA_KERNELS.items():
+    fail on a spill, and on a note that ptxas serialised the SSD kernel's
+    wgmma (for want of registers: what 2 blocks an SM at 128 registers did
+    to its first tensor-core build).  A library missing from ``logs`` was
+    already built (nothing to read)."""
+    for lib, (names, dim, count) in WGMMA_KERNELS.items():
         if lib not in logs:
             print(f"ptxas: the {lib} library was cached; no register report")
             continue
@@ -192,14 +201,17 @@ def check_wgmma_ptxas(logs: dict[str, str]) -> None:
                 name = line.split("'")[1]
                 kernel = next((k for k in names if k in name), None)
                 if kernel:
-                    kernel += "<D=128" if "ILi128E" in name else "<D=64"
+                    kernel += f"<{dim}=128" if "ILi128E" in name else f"<{dim}=64"
                     kernel += ", lse>" if "Lb1E" in name else ">"
             elif kernel and ("spill" in line or "registers" in line):
                 print(f"  ptxas {kernel}: {line.replace('ptxas info    :', '').strip()}")
                 if "spill" in line:
                     seen.add(kernel)
                     check(" 0 bytes spill stores, 0 bytes spill loads" in line, f"{kernel} spills: {line.strip()}")
-        check(len(seen) == 4, f"ptxas reported on {sorted(seen)} in {lib}, expected 4 tensor-core instantiations")
+            if lib == "ssd_intra_chunk" and "serialized" in line and "ssd_tc_kernel" in line:
+                check(False, f"ptxas serialised the SSD tensor-core kernel's wgmma: {line.strip()}")
+        check(len(seen) == count,
+              f"ptxas reported on {sorted(seen)} in {lib}, expected {count} tensor-core instantiations")
 
 
 def logit_bound(head: list[dict], d_counts: torch.Tensor, scale: float) -> torch.Tensor:
@@ -490,19 +502,23 @@ def lm_phase(dev: torch.device, smi: str) -> list[dict]:
     flash_attention_cuda.launches = 0
     flash_attention_cuda.designs = dict.fromkeys(flash_attention_cuda.designs, 0)
     ssd_intra_chunk_cuda.launches = 0
+    ssd_intra_chunk_cuda.designs = dict.fromkeys(ssd_intra_chunk_cuda.designs, 0)
     res = serve(params, cfg, prompts, batch=LM_BATCH, tokens=LM_TOKENS, device=dev)
     launches = {"flash_attention": flash_attention_cuda.launches,
                 "ssd_intra_chunk": ssd_intra_chunk_cuda.launches}
-    fwd_designs = dict(flash_attention_cuda.designs)
+    fwd_designs, ssd_designs = dict(flash_attention_cuda.designs), dict(ssd_intra_chunk_cuda.designs)
     for i, p_ms in enumerate(res["prefill_ms"]):
         print(f"wave {i}: prefill {p_ms:.1f} ms ({LM_BATCH}x{LM_PROMPT} tokens), {LM_TOKENS - 1} decode steps "
               f"{res['decode_ms'][i]:.1f} ms, launches (flash, ssd) per prefill {res['prefill_launches'][i]}, "
               f"in decode {res['decode_launches'][i]}")
     print(f"served {LM_REQUESTS} requests x {LM_TOKENS} tokens on {smi}: decode {res['decode_tok_s']:.1f} tok/s, "
           f"end to end {res['e2e_tok_s']:.1f} tok/s, max_memory_allocated "
-          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; launches {launches}, flash designs {fwd_designs}")
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; launches {launches}, flash designs {fwd_designs}, "
+          f"ssd designs {ssd_designs}")
     check(fwd_designs["wgmma"] == launches["flash_attention"],
           f"flash launches by design {fwd_designs}: every served (bf16) launch must take the tensor-core design")
+    check(ssd_designs["wgmma"] == launches["ssd_intra_chunk"],
+          f"ssd launches by design {ssd_designs}: every served launch (q=128, p=n=64) must take the tensor-core design")
     n_groups = cfg.n_layers // cfg.hybrid_attn_period
     for i in range(len(res["prefill_ms"])):
         check(res["prefill_launches"][i] == (n_groups, cfg.n_layers),
@@ -533,10 +549,17 @@ def lm_phase(dev: torch.device, smi: str) -> list[dict]:
     ssd_err = max(float((y - y_r).abs().max()), float((st - st_r).abs().max()))
     rel = max(float((y - y_r).abs().max()) / float(y_r.abs().max()),
               float((st - st_r).abs().max()) / float(st_r.abs().max()))
-    print(f"ssd kernel vs plain at xbar {tuple(xbar.shape)}, B/C head stride {Bh.stride(3)}: "
-          f"max|Δ| {ssd_err:.3e}, normwise {rel:.2e}")
+    y_s, st_s = simt_ssd(xbar, Bh, Ch, cum)
+    torch.cuda.synchronize()
+    rel_s = max(float((y_s - y_r).abs().max()) / float(y_r.abs().max()),
+                float((st_s - st_r).abs().max()) / float(st_r.abs().max()))
+    print(f"ssd kernel ({ssd_kernel.design(xbar, Bh, Ch)} design) vs plain at xbar {tuple(xbar.shape)}, B/C head "
+          f"stride {Bh.stride(3)}: max|Δ| {ssd_err:.3e}, normwise {rel:.2e} (limit {SSD_NORMWISE}); the SIMT design "
+          f"there: normwise {rel_s:.2e}; chunk_decay bit-equal {torch.equal(dec, dec_r)}")
+    check(ssd_kernel.design(xbar, Bh, Ch) == "wgmma", "the served SSD inputs must take the tensor-core design")
     check(rel <= SSD_NORMWISE and torch.equal(dec, dec_r), "ssd kernel disagrees with its plain version")
-    del y, st, dec, y_r, st_r, dec_r
+    check(rel_s <= SSD_NORMWISE, "the SSD kernel's SIMT design disagrees with its plain version")
+    del y, st, dec, y_r, st_r, dec_r, y_s, st_s
 
     # ---- 11. timings, bounds, library yardstick, profile ----------------------
     B, Sq, H, D = q.shape
@@ -560,14 +583,22 @@ def lm_phase(dev: torch.device, smi: str) -> list[dict]:
     b, nc, Q, Hs, P = xbar.shape
     N, G = Bh.shape[-1], cfg.ssm_groups
     ssd_ms = time_cuda(lambda: ssd_intra_chunk_cuda(xbar, Bh, Ch, cum))
+    ssd_simt_ms = time_cuda(lambda: simt_ssd(xbar, Bh, Ch, cum))
     ssd_plain_ms = time_cuda(lambda: ssd_intra_chunk_ref(xbar, Bh, Ch, cum), iters=5)
     s_bytes = 4 * (2 * b * nc * Q * Hs * P + b * nc * Q * Hs + 2 * b * nc * Q * G * N + b * nc * Hs * P * N)
     # cb = C Bᵀ and (cb∘L) xbar need only the causal j <= i half (Q(Q+1)/2
     # pairs, 2 flops each per N or P); the chunk state is a full Q-term product
     s_ops = b * nc * Hs * (Q * (Q + 1) * N + Q * (Q + 1) * P + 2 * Q * N * P)
-    s_tb, s_to = s_bytes / PEAK_BYTES_PER_S * 1e3, s_ops / PEAK_FP32_FLOP_PER_S * 1e3
-    print(f"ssd at b={b} nc={nc} Q={Q} H={Hs} P={P} N={N} G={G} on {smi}: kernel {ssd_ms:.4f} ms, plain "
-          f"{ssd_plain_ms:.4f} ms, bound {max(s_tb, s_to):.4f} ms (bytes {s_tb:.4f}, fp32 ops {s_to:.4f})")
+    # the tensor-core design runs those products as six bf16 passes at the
+    # bf16 peak; the f32 CUDA-core figure is the bound PRs 12-15 stated
+    s_tb = s_bytes / PEAK_BYTES_PER_S * 1e3
+    s_tt = SSD_PASSES * s_ops / PEAK_BF16_FLOP_PER_S * 1e3
+    s_tf = s_ops / PEAK_FP32_FLOP_PER_S * 1e3
+    print(f"ssd at b={b} nc={nc} Q={Q} H={Hs} P={P} N={N} G={G} on {smi}: kernel "
+          f"({ssd_kernel.design(xbar, Bh, Ch)}) {ssd_ms:.4f} ms, SIMT design {ssd_simt_ms:.4f} ms, plain "
+          f"{ssd_plain_ms:.4f} ms, bound {max(s_tb, s_tt):.4f} ms (bytes {s_bytes / 1e9:.3f} GB: {s_tb:.4f}; "
+          f"{SSD_PASSES} bf16 passes of {s_ops:.3e} FLOP: {s_tt:.4f}; as f32 on CUDA cores: {s_tf:.4f}); "
+          f"achieved {s_bytes / ssd_ms / 1e6:.1f} GB/s, {100 * max(s_tb, s_tt) / ssd_ms:.1f}% of the bound")
     del seen, q, k, v, qt, kt, vt, xbar, Bh, Ch, cum
 
     toks = torch.as_tensor(prompts[:LM_BATCH], device=dev)
@@ -614,8 +645,10 @@ def lm_phase(dev: torch.device, smi: str) -> list[dict]:
             "max_abs_err": ssd_err,
             "ms": ssd_ms,
             "plain_ms": ssd_plain_ms,
-            "bound_ms": max(s_tb, s_to),
-            "bound_by": "bytes" if s_tb >= s_to else "operations",
+            "bound_ms": max(s_tb, s_tt),
+            "bound_by": "bytes" if s_tb >= s_tt else "operations",
+            "simt_ms": ssd_simt_ms,
+            "gb_per_s": s_bytes / ssd_ms / 1e6,
             # no single PyTorch call computes the masked intra-chunk contraction
             "library_ms": None,
         },
@@ -900,6 +933,25 @@ def simt_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: b
     )
     check(err == 0, f"SIMT forward launch failed with CUDA error {err}")
     return out, lse
+
+
+def simt_ssd(xbar: torch.Tensor, Bh: torch.Tensor, Ch: torch.Tensor,
+             cum: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The SSD kernel's SIMT design (the served path before the tensor-core
+    design), launched through the C entry point so that no launch counter
+    moves: it times the old design beside the new one in the same run and
+    is no part of the main path."""
+    b, nc, q, h, p = xbar.shape
+    n = Bh.shape[-1]
+    y = torch.empty_like(xbar)
+    states = torch.empty((b, nc, h, p, n), dtype=torch.float32, device=xbar.device)
+    err = ssd_kernel._launcher()(
+        xbar.data_ptr(), Bh.data_ptr(), Ch.data_ptr(), cum.data_ptr(), y.data_ptr(), states.data_ptr(),
+        b, nc, q, h, p, n, *Bh.stride()[:4], *Ch.stride()[:4], 0,
+        torch.cuda.current_stream(xbar.device).cuda_stream,
+    )
+    check(err == 0, f"SIMT SSD launch failed with CUDA error {err}")
+    return y, states
 
 
 def _leaves(tree: dict):

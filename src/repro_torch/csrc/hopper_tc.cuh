@@ -1,19 +1,19 @@
-// Building blocks of the flash-attention kernels' tensor-core designs for
-// Hopper (sm_90a): which inputs the design takes, the cp.async staging of bf16 tiles in wgmma's 128-byte
-// swizzle, the shared-memory matrix descriptors (K-major and MN-major), the
-// bf16 wgmma products (SS m64n64k16 for scores, RS m64n64k16 / m64n128k16
-// for accumulations whose A operand is a register fragment), the split of
-// an f32 accumulator into bf16 hi + lo A fragments, and the accumulator's
-// fragment layout, and the key walk of a query-stationary block; and what
-// both designs share: the mask, the -1e30 sentinel, the head-dim limit, the
-// (batch, seq, head) strides and the dtype conversions.  Included by
-// flash_attention.cu (the forward) and
-// flash_attention_bwd.cu (dQ, dK/dV); each is its own library, so the
-// helpers live in an unnamed namespace.
+// Building blocks of the tensor-core designs for Hopper (sm_90a): which
+// inputs the flash design takes, the cp.async staging of bf16 tiles in
+// wgmma's 128-byte swizzle, the shared-memory matrix descriptors (K-major
+// and MN-major), the bf16 wgmma products (SS m64n64k16 for scores, RS
+// m64n64k16 / m64n128k16 for products whose A operand is a register
+// fragment, B read MN-major or K-major), the split of an f32 accumulator
+// into bf16 hi + lo A fragments, the accumulator's fragment layout, and the
+// key walk of a query-stationary block; and what both flash designs share:
+// the mask, the -1e30 sentinel, the head-dim limit, the (batch, seq, head)
+// strides and the dtype conversions.  Included by flash_attention.cu (the
+// forward), flash_attention_bwd.cu (dQ, dK/dV) and ssd_intra_chunk.cu; each
+// is its own library, so the helpers live in an unnamed namespace.
 //
-// Block shape shared by every kernel built on them: two warpgroups, each on
-// its own 64 stationary rows of a 128-row tile, and 64-row streamed tiles
-// through a two-stage ring.
+// The flash kernels share a block shape: two warpgroups, each on its own 64
+// stationary rows of a 128-row tile, and 64-row streamed tiles through a
+// two-stage ring.  The SSD kernel's blocks are one warpgroup each.
 
 #pragma once
 
@@ -105,6 +105,11 @@ __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_grou
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// wait until at most N committed wgmma groups are still in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 // pin registers that an in-flight wgmma reads or writes at this point of the program
 template <int N>
 __device__ __forceinline__ void pin(float (&r)[N]) {
@@ -184,21 +189,25 @@ __device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da, uin
       : "l"(da), "l"(db), "r"(1));
 }
 
-__device__ __forceinline__ void wgmma_rs_tb(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+// RS wgmma: A from registers (a bf16 fragment), B from shared memory read
+// MN-major (kTransB 1, "tb") or K-major (0)
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(kTransB));
 }
 
-__device__ __forceinline__ void wgmma_rs_tb(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -206,7 +215,7 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[64], const uint32_t (&a)[
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -215,7 +224,7 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[64], const uint32_t (&a)[
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(kTransB));
 }
 
 // s = (the warpgroup's 64 rows [r0, r0 + 64) of a stationary tile) . (a
@@ -257,12 +266,12 @@ __device__ __forceinline__ void issue_accumulate(float (&acc)[N], const uint32_t
 #pragma unroll
   for (int kk = 0; kk < kStream / 16; ++kk) {
     const uint32_t h[4] = {hi[4 * kk], hi[4 * kk + 1], hi[4 * kk + 2], hi[4 * kk + 3]};
-    wgmma_rs_tb(acc, h, db + mnmajor_step(kk));
+    wgmma_rs<1>(acc, h, db + mnmajor_step(kk));
   }
 #pragma unroll
   for (int kk = 0; kk < kStream / 16; ++kk) {
     const uint32_t l[4] = {lo[4 * kk], lo[4 * kk + 1], lo[4 * kk + 2], lo[4 * kk + 3]};
-    wgmma_rs_tb(acc, l, db + mnmajor_step(kk));
+    wgmma_rs<1>(acc, l, db + mnmajor_step(kk));
   }
 }
 

@@ -53,13 +53,13 @@ __all__ = ["init_model", "forward_prefill", "forward_decode", "forward_train", "
 # what each family has in the port so far
 SERVED_FAMILIES = ("hybrid",)
 TRAINED_FAMILIES = ("dense",)
-REMAT_POLICIES = ("none", "full")   # the reference's "dots" policies: ROADMAP queue A item 10
+REMAT_POLICIES = ("none", "full")   # the reference's "dots" policies: ROADMAP queue A item 7
 
 
 def _require(cfg: ModelConfig, families: tuple[str, ...], what: str) -> None:
     if cfg.family not in families:
         raise NotImplementedError(
-            f"{what} for family {cfg.family!r} is not ported yet (ROADMAP.md queue A item 10: "
+            f"{what} for family {cfg.family!r} is not ported yet (ROADMAP.md queue A item 7: "
             f"hybrid training, dense serving and the moe/ssm/vlm/encdec families come in later "
             f"slices); serving is ported for {SERVED_FAMILIES}, training for {TRAINED_FAMILIES}"
         )
@@ -332,7 +332,7 @@ def forward_train(
     _require(cfg, TRAINED_FAMILIES, "forward_train")
     if remat not in REMAT_POLICIES:
         raise NotImplementedError(
-            f"remat={remat!r} is not ported yet (ROADMAP.md queue A item 10); ported: {REMAT_POLICIES}"
+            f"remat={remat!r} is not ported yet (ROADMAP.md queue A item 7); ported: {REMAT_POLICIES}"
         )
     x = embed(params["embed"], batch["tokens"]).to(torch_dtype(cfg.dtype))
     positions = torch.arange(x.shape[1], device=x.device)

@@ -15,7 +15,9 @@ Tolerances, each kernel against its plain PyTorch version on the card:
   bf16 tensor-core design holds the same limit: its s products are exact
   in f32 and its split p keeps p to about 2**-17.
 - SSD intra-chunk: max|diff| <= 2e-5 * max|want| (f32 sums of up to 128
-  products taken in another order).
+  products taken in another order; the tensor-core design splits each f32
+  operand into three bf16 parts and runs six passes, ~5e-7 in its host
+  emulation, tests/test_torch_ssd_tc.py).
 - flash backward (dQ, dK/dV) and the forward's LSE, normwise against the
   plain version: float32 max|diff| <= 1e-5 * max|want| (f32 sums over up to
   G x S terms in another order); bf16 within two bf16 ulps of max|want|
@@ -420,26 +422,54 @@ def _normwise(got, want, tol=2e-5):
 
 
 @pytest.mark.parametrize(
-    "b,nc,q,h,p,n,g",
+    "b,nc,q,h,p,n,g,chosen",
     [
-        (2, 3, 128, 4, 64, 64, 1),     # the served chunk and widths
-        (1, 2, 64, 8, 64, 128, 1),     # wide state
-        (2, 3, 32, 4, 16, 8, 1),       # small dims
-        (1, 2, 100, 6, 48, 40, 3),     # ragged chunk, three groups (repeated)
-        (1, 1, 16, 2, 128, 16, 1),     # wide heads
+        (2, 3, 128, 4, 64, 64, 1, "wgmma"),    # the served chunk and widths
+        (1, 2, 128, 4, 64, 128, 1, "wgmma"),   # the wide state of mamba2-2.7b
+        (1, 2, 128, 4, 64, 64, 2, "wgmma"),    # two groups (repeated, so B/C are contiguous)
+        (1, 2, 64, 8, 64, 128, 1, "simt"),     # wide state, short chunk
+        (2, 3, 32, 4, 16, 8, 1, "simt"),       # small dims
+        (1, 2, 100, 6, 48, 40, 3, "simt"),     # ragged chunk, three groups (repeated)
+        (1, 1, 16, 2, 128, 16, 1, "simt"),     # wide heads
     ],
 )
-def test_ssd_kernel_matches_plain_version(cuda, b, nc, q, h, p, n, g):
+def test_ssd_kernel_matches_plain_version(cuda, b, nc, q, h, p, n, g, chosen):
     xbar, Bh, Ch, cum = _ssd_chunk_inputs(b, nc, q, h, p, n, g, cuda, seed=q + p + n)
-    before = ssd_intra_chunk_cuda.launches
+    before, designs = ssd_intra_chunk_cuda.launches, dict(ssd_intra_chunk_cuda.designs)
     y, states, decay = ssd_intra_chunk_cuda(xbar, Bh, Ch, cum)
     torch.cuda.synchronize()
     assert ssd_intra_chunk_cuda.launches == before + 1
+    assert ssd_intra_chunk_cuda.designs == {**designs, chosen: designs[chosen] + 1}
     y_ref, s_ref, d_ref = ssd_intra_chunk_ref(xbar, Bh, Ch, cum)
     assert y.shape == y_ref.shape and states.shape == s_ref.shape == (b, nc, h, p, n)
     _normwise(y, y_ref)
     _normwise(states, s_ref)
     assert torch.equal(decay, d_ref)
+
+
+def test_ssd_tensor_core_design_takes_misaligned_rows_to_simt(cuda):
+    """The served shape with B/C rows that are not 16-byte aligned (a state
+    dim cut from a wider tensor) goes to the SIMT design and still agrees."""
+    xbar, Bh, Ch, cum = _ssd_chunk_inputs(1, 2, 128, 4, 64, 65, 1, cuda, seed=11)
+    Bh, Ch = Bh[..., 1:], Ch[..., 1:]
+    before = dict(ssd_intra_chunk_cuda.designs)
+    y, states, _ = ssd_intra_chunk_cuda(xbar, Bh, Ch, cum)
+    torch.cuda.synchronize()
+    assert ssd_intra_chunk_cuda.designs == {**before, "simt": before["simt"] + 1}
+    y_ref, s_ref, _ = ssd_intra_chunk_ref(xbar, Bh, Ch, cum)
+    _normwise(y, y_ref)
+    _normwise(states, s_ref)
+
+
+def test_ssd_wrapper_refuses_inputs_that_need_a_gradient(cuda):
+    xbar, Bh, Ch, cum = _ssd_chunk_inputs(1, 2, 128, 4, 64, 64, 1, cuda)
+    before = ssd_intra_chunk_cuda.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        ssd_intra_chunk_cuda(xbar.requires_grad_(), Bh, Ch, cum)
+    assert ssd_intra_chunk_cuda.launches == before
+    with torch.no_grad():
+        ssd_intra_chunk_cuda(xbar, Bh, Ch, cum)
+    assert ssd_intra_chunk_cuda.launches == before + 1
 
 
 def test_ssd_chunked_through_the_kernel_matches_plain(cuda):
