@@ -11,10 +11,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  In order it
    4608 -> 64 -> 2 head) with random weights from a seeded generator;
 5. serves requests through ``CompiledModel.run``: batches of 1, 64 and 256
    frames, one region-skip request keeping ~10% of the blocks, one
-   all-skipped request; counts the kernel launches of that run;
+   all-skipped request; counts the kernel launches of that run, and checks
+   that every one took the kernel's tensor-core design;
 6. holds each kernel of the path against its plain PyTorch version on the
-   card, and the served counts and logits against the dense oracle;
-7. times each kernel, its plain version and its bound;
+   card (both designs of the fpca kernel, with their flip shares), and the
+   served counts and logits against the dense oracle;
+7. times each kernel, its plain version and its bound: the fpca kernel's
+   two designs at the windows of batch 1, 64 and 256, beside a bound of
+   four parts (bytes, tensor-core, fp32 and MUFU operations);
 
 then the language-model serving path (``repro_torch.launch.serve``):
 
@@ -52,8 +56,9 @@ then, with zamba2's weights freed, the training path
    their achieved TFLOP/s, times the forward kernel and SDPA's forward at
    that shape with its achieved TFLOP/s, and profiles one step.  Every bf16
    forward, dQ and dK/dV launch of a step must take the tensor-core design,
-   and ptxas must report no spill for any tensor-core kernel, flash or SSD
-   (printed after the build).
+   and ptxas must report no spill for any tensor-core kernel, flash, SSD or
+   fpca (printed after the build), and no serialised wgmma in the SSD or
+   fpca one.
 
 It prints one JSON line ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {...}}``; a failed phase exits non-zero before
@@ -83,6 +88,7 @@ from repro_torch.core.curvefit import fit_bucket_model  # noqa: E402
 from repro_torch.core.fpca_sim import encode_weights, extract_windows  # noqa: E402
 from repro_torch.core.mapping import active_window_mask  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.fpca_conv import kernel as fpca_kernel  # noqa: E402
 from repro_torch.kernels.fpca_conv.kernel import (  # noqa: E402
     conv_tables,
     fpca_conv_basis,
@@ -118,9 +124,22 @@ BATCHES = (1, 64, 256)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
 PEAK_BF16_FLOP_PER_S = 989e12
-# bf16 wgmma passes of the SSD kernel's tensor-core design per product: each
-# f32 operand split into three bf16 parts, six products of parts
-SSD_PASSES = 6
+# MUFU (ex2, rcp) results: 16 a clock per SM (the CUDA C++ Programming
+# Guide's throughput table, compute capability 9.0) x 132 SMs x the 1.98 GHz
+# boost clock
+PEAK_MUFU_PER_S = 16 * 132 * 1.98e9
+# bf16 wgmma passes of the SSD and fpca kernels' tensor-core designs per
+# product: each f32 operand split into three bf16 parts, six products of parts
+SSD_PASSES = FPCA_PASSES = 6
+# the fpca gate bank as the tensor-core design computes it, counted from
+# csrc/fpca_conv.cu per (window, channel, phase): the f_avg estimate (T
+# FMAs); per bucket edge (NB + 1, shared by neighbouring buckets) the
+# sigmoid's argument and 1 + e (3 FLOP), an expf (ex2) and a reciprocal (2
+# MUFU); per bucket the gate (1), the 10-term combine (10 FMAs) and its
+# accumulation (1 FMA), 23 FLOP; 2 more MUFU: the division of xg and half
+# of the two ADC divisions of a (window, channel).  Per window: x^2, x^3 and
+# the three sums, 5 N FLOP.
+FPCA_FLOP_PER_EDGE, FPCA_FLOP_PER_BUCKET, FPCA_MUFU_PER_EDGE, FPCA_MUFU_EXTRA = 3, 23, 2, 2
 COUNT_TOL, FLIP_TOL = 1.0, 0.05   # <= 1 ADC count, < 5% of counts off
 
 # LM serving path: zamba2-7b at full width, 8 requests of 4096 tokens in
@@ -160,14 +179,16 @@ def time_cuda(fn, iters: int = 20, flush_bytes: int = 128 << 20) -> float:
     """Median device milliseconds of ``fn()``.  The 50 MB L2 is flushed
     before each timed call, so every call reads its inputs from device
     memory; everything is enqueued before one synchronise, so the card never
-    waits on the host inside a timed interval (the flush covers the host's
-    launch time of the next call)."""
+    waits on the host inside a timed interval (the flush and a ~0.5 ms spin
+    after it cover the host's launch time of the next call: the flush alone,
+    ~0.04 ms, did not cover a wrapper's checks before a 0.01 ms kernel)."""
     flush = torch.empty(flush_bytes, dtype=torch.uint8, device="cuda")
     for _ in range(3):
         fn()
     events = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(1_000_000)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -179,18 +200,22 @@ def time_cuda(fn, iters: int = 20, flush_bytes: int = 128 << 20) -> float:
 
 # the tensor-core kernels of each library, the template width they are
 # instantiated over and the number of instantiations: the forward DP 64 /
-# 128 x with and without the LSE, dQ and dK/dV DP 64 / 128, SSD N 64 / 128
+# 128 x with and without the LSE, dQ and dK/dV DP 64 / 128, SSD N 64 / 128,
+# fpca one (5 buckets, 15 f_avg terms)
 WGMMA_KERNELS = {"flash_attention": (("flash_fwd_wgmma",), "D", 4),
                  "flash_attention_bwd": (("flash_bwd_dq_wgmma", "flash_bwd_dkdv_wgmma"), "D", 4),
-                 "ssd_intra_chunk": (("ssd_tc_kernel",), "N", 2)}
+                 "ssd_intra_chunk": (("ssd_tc_kernel",), "N", 2),
+                 "fpca_conv": (("fpca_tc_kernel",), None, 1)}
+# the libraries whose tensor-core kernels must not have their wgmma serialised
+NO_SERIALISED_WGMMA = {"ssd_intra_chunk": "ssd_tc_kernel", "fpca_conv": "fpca_tc_kernel"}
 
 
 def check_wgmma_ptxas(logs: dict[str, str]) -> None:
     """Print ptxas's register and spill lines of the tensor-core kernels;
-    fail on a spill, and on a note that ptxas serialised the SSD kernel's
-    wgmma (for want of registers: what 2 blocks an SM at 128 registers did
-    to its first tensor-core build).  A library missing from ``logs`` was
-    already built (nothing to read)."""
+    fail on a spill, and on a note that ptxas serialised the SSD or fpca
+    kernel's wgmma (for want of registers: what 2 blocks an SM at 128
+    registers did to the SSD kernel's first tensor-core build).  A library
+    missing from ``logs`` was already built (nothing to read)."""
     for lib, (names, dim, count) in WGMMA_KERNELS.items():
         if lib not in logs:
             print(f"ptxas: the {lib} library was cached; no register report")
@@ -200,7 +225,7 @@ def check_wgmma_ptxas(logs: dict[str, str]) -> None:
             if "Compiling entry function" in line:
                 name = line.split("'")[1]
                 kernel = next((k for k in names if k in name), None)
-                if kernel:
+                if kernel and dim:
                     kernel += f"<{dim}=128" if "ILi128E" in name else f"<{dim}=64"
                     kernel += ", lse>" if "Lb1E" in name else ">"
             elif kernel and ("spill" in line or "registers" in line):
@@ -208,8 +233,8 @@ def check_wgmma_ptxas(logs: dict[str, str]) -> None:
                 if "spill" in line:
                     seen.add(kernel)
                     check(" 0 bytes spill stores, 0 bytes spill loads" in line, f"{kernel} spills: {line.strip()}")
-            if lib == "ssd_intra_chunk" and "serialized" in line and "ssd_tc_kernel" in line:
-                check(False, f"ptxas serialised the SSD tensor-core kernel's wgmma: {line.strip()}")
+            if lib in NO_SERIALISED_WGMMA and "serialized" in line and NO_SERIALISED_WGMMA[lib] in line:
+                check(False, f"ptxas serialised the {lib} tensor-core kernel's wgmma: {line.strip()}")
         check(len(seen) == count,
               f"ptxas reported on {sorted(seen)} in {lib}, expected {count} tensor-core instantiations")
 
@@ -273,6 +298,7 @@ def main() -> None:
         model.run(x, block_mask=mask)
     torch.cuda.synchronize()
     fpca_conv_cuda.launches = 0
+    fpca_conv_cuda.designs = dict.fromkeys(fpca_conv_cuda.designs, 0)
     served = []
     for label, x, mask in requests:
         before = fpca_conv_cuda.launches
@@ -287,10 +313,12 @@ def main() -> None:
         skipped = mask is not None and not mask.any()
         check(launched == (0 if skipped else 1), f"{label}: {launched} fpca_conv launches")
         print(f"request {label}: {ms:.3f} ms host clock, fpca_conv launches {launched}")
-    launches = fpca_conv_cuda.launches
+    launches, designs = fpca_conv_cuda.launches, dict(fpca_conv_cuda.designs)
     check(launches >= 1, "the main path never launched fpca_conv_cuda")
-    print(f"main path: {len(requests)} requests, fpca_conv_cuda launches {launches}, "
+    print(f"main path: {len(requests)} requests, fpca_conv_cuda launches {launches} by design {designs}, "
           f"stats {model.stats.snapshot()}")
+    check(designs["wgmma"] == launches, f"fpca launches by design {designs}: every served launch must take the "
+          "tensor-core design")
 
     # request latency, host clock around synchronised runs (median of 10)
     latency = {}
@@ -311,12 +339,19 @@ def main() -> None:
     planes = weight_planes(w_pos.T, w_neg.T, tables)
     patches = extract_windows(frames[256], spec).reshape(-1, spec.n_active_pixels).contiguous()
     bn_dev = bn.to(dev)
+    check(fpca_kernel.design(patches, tables, prog.out_channels) == "wgmma",
+          "the served patch matrix must take the fpca tensor-core design")
     got = fpca_conv_cuda(patches, planes, tables, bn_dev)
     want = fpca_conv_basis(patches, planes, tables, bn_dev)
+    got_s = simt_fpca(patches, planes, tables, bn_dev)
     torch.cuda.synchronize()
     max_err, flips = count_diff(got, want)
-    print(f"fpca_conv kernel vs plain at M={patches.shape[0]}: max|Δcount| {max_err}, flips {flips:.2e}")
+    err_s, flips_s = count_diff(got_s, want)
+    print(f"fpca_conv kernel (tensor-core design) vs plain at M={patches.shape[0]}: max|Δcount| {max_err}, "
+          f"flip share {flips:.3e}; the SIMT design there: max|Δcount| {err_s}, flip share {flips_s:.3e} "
+          f"(limit: <= {COUNT_TOL} on < {FLIP_TOL} of counts)")
     check(max_err <= COUNT_TOL and flips < FLIP_TOL, "fpca_conv kernel disagrees with its plain version")
+    check(err_s <= COUNT_TOL and flips_s < FLIP_TOL, "the fpca_conv kernel's SIMT design disagrees with its plain version")
     valid = (torch.arange(patches.shape[0], device=dev) % 3 != 0).float()
     got_v = fpca_conv_cuda(patches, planes, tables, bn_dev, row_valid=valid)
     check(bool((got_v[valid == 0] == 0).all()) and torch.equal(got_v[valid == 1], got[valid == 1]),
@@ -346,15 +381,37 @@ def main() -> None:
     print(f"region skip: {int(keep.sum())}/{keep.numel()} windows kept per frame, compact == masked dense")
 
     # ---- 7. timings and bound ------------------------------------------------
-    ms = time_cuda(lambda: fpca_conv_cuda(patches, planes, tables, bn_dev))
+    by_rows = {}
+    for b in BATCHES:   # the tensor-core design (the wrapper) beside the SIMT one, in turns
+        p = patches if b == 256 else extract_windows(frames[b], spec).reshape(-1, spec.n_active_pixels).contiguous()
+        tc_ms = time_cuda(lambda: fpca_conv_cuda(p, planes, tables, bn_dev))
+        simt_ms = time_cuda(lambda: simt_fpca(p, planes, tables, bn_dev))
+        tc_ms2 = time_cuda(lambda: fpca_conv_cuda(p, planes, tables, bn_dev))
+        by_rows[p.shape[0]] = {"ms": statistics.median([tc_ms, tc_ms2]), "simt_ms": simt_ms}
+        print(f"fpca_conv at M={p.shape[0]} (batch {b}) on {smi}: tensor-core design {tc_ms:.4f} / {tc_ms2:.4f} ms, "
+              f"SIMT design {simt_ms:.4f} ms")
+    ms, simt_ms = by_rows[patches.shape[0]]["ms"], by_rows[patches.shape[0]]["simt_ms"]
     plain_ms = time_cuda(lambda: fpca_conv_basis(patches, planes, tables, bn_dev))
     M, N = patches.shape
-    C = prog.out_channels
+    C, T, NB = prog.out_channels, planes["aw"].shape[1], bucket_model.n_buckets
     bytes_moved = 4 * (M * N + M * C)
-    flops = 2 * 3 * M * C * N * 2        # 2 phases x 3 dot products x M*C*N FMAs
-    t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOP_PER_S * 1e3
-    print(f"fpca_conv at M={M}, N={N}, C={C} on {smi}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f}, fp32 ops {t_ops:.4f})")
+    dot_flops = 2 * 3 * M * C * N * 2        # 2 phases x 3 dot products x M*C*N FMAs
+    outs = M * C * 2                         # (window, channel, phase)
+    parts = {
+        "bytes": bytes_moved / PEAK_BYTES_PER_S * 1e3,
+        "tensor": FPCA_PASSES * dot_flops / PEAK_BF16_FLOP_PER_S * 1e3,
+        "fp32": (outs * (2 * T + (NB + 1) * FPCA_FLOP_PER_EDGE + NB * FPCA_FLOP_PER_BUCKET) + M * 5 * N)
+        / PEAK_FP32_FLOP_PER_S * 1e3,
+        "mufu": outs * ((NB + 1) * FPCA_MUFU_PER_EDGE + FPCA_MUFU_EXTRA) / PEAK_MUFU_PER_S * 1e3,
+    }
+    fpca_bound = max(parts.values())
+    old_bound = max(parts["bytes"], dot_flops / PEAK_FP32_FLOP_PER_S * 1e3)
+    print(f"fpca_conv at M={M}, N={N}, C={C} on {smi}: kernel {ms:.4f} ms (tensor-core design), SIMT design "
+          f"{simt_ms:.4f} ms, plain {plain_ms:.4f} ms; bound {fpca_bound:.4f} ms, the largest of bytes "
+          f"{bytes_moved / 1e6:.1f} MB {parts['bytes']:.4f}, {FPCA_PASSES} bf16 passes of {dot_flops:.3e} FLOP "
+          f"{parts['tensor']:.4f}, gate-bank fp32 {parts['fp32']:.4f}, MUFU {parts['mufu']:.4f} (the dots as fp32 "
+          f"FMAs alone, the bound stated for the SIMT design: {old_bound:.4f}); achieved {bytes_moved / ms / 1e6:.1f} GB/s, "
+          f"{100 * fpca_bound / ms:.1f}% of the bound")
 
     for b in (1, 256):
         device_ms, rows = profile_request(model, frames[b])
@@ -369,11 +426,18 @@ def main() -> None:
         "source": "src/repro_torch/csrc/fpca_conv.cu",
         "replaces": "src/repro/kernels/fpca_conv/kernel.py:90",
         "launches": launches,
+        "designs": designs,
         "max_abs_err": max_err,
+        "flip_share": flips,
         "ms": ms,
+        "simt_ms": simt_ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_ms": fpca_bound,
+        "bound_by": "bytes" if parts["bytes"] >= fpca_bound else "operations",
+        "bound_parts_ms": parts,
+        "old_bound_ms": old_bound,
+        "gb_per_s": bytes_moved / ms / 1e6,
+        "ms_by_rows": by_rows,
         # no single PyTorch call computes the bucket-gated basis bank
         "library_ms": None,
     }
@@ -933,6 +997,17 @@ def simt_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: b
     )
     check(err == 0, f"SIMT forward launch failed with CUDA error {err}")
     return out, lse
+
+
+def simt_fpca(patches: torch.Tensor, planes: dict, tables, bn: torch.Tensor) -> torch.Tensor:
+    """The fpca kernel's SIMT design (the served path before the tensor-core
+    design), launched through the C entry point so that no launch counter
+    moves: it checks and times the old design beside the new one in the
+    same run and is no part of the main path."""
+    out = torch.empty((patches.shape[0], bn.shape[0]), dtype=torch.float32, device=patches.device)
+    err = fpca_kernel._launch(patches, planes, tables, bn, None, out, tensor_cores=False)
+    check(err == 0, f"SIMT fpca launch failed with CUDA error {err}")
+    return out
 
 
 def simt_ssd(xbar: torch.Tensor, Bh: torch.Tensor, Ch: torch.Tensor,

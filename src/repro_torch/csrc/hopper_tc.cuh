@@ -4,16 +4,21 @@
 // and MN-major), the bf16 wgmma products (SS m64n64k16 for scores, RS
 // m64n64k16 / m64n128k16 for products whose A operand is a register
 // fragment, B read MN-major or K-major), the split of an f32 accumulator
-// into bf16 hi + lo A fragments, the accumulator's fragment layout, and the
+// into bf16 hi + lo A fragments, the split of f32 values into three
+// truncated bf16 parts with the six-pass order of their products, the
+// no-swizzle descriptor and the narrow RS products (m64n32k16, m64n16k16)
+// of the FPCA design, the accumulator's fragment layout, and the
 // key walk of a query-stationary block; and what both flash designs share:
 // the mask, the -1e30 sentinel, the head-dim limit, the (batch, seq, head)
 // strides and the dtype conversions.  Included by flash_attention.cu (the
-// forward), flash_attention_bwd.cu (dQ, dK/dV) and ssd_intra_chunk.cu; each
-// is its own library, so the helpers live in an unnamed namespace.
+// forward), flash_attention_bwd.cu (dQ, dK/dV), ssd_intra_chunk.cu and
+// fpca_conv.cu; each is its own library, so the helpers live in an unnamed
+// namespace.
 //
 // The flash kernels share a block shape: two warpgroups, each on its own 64
 // stationary rows of a 128-row tile, and 64-row streamed tiles through a
-// two-stage ring.  The SSD kernel's blocks are one warpgroup each.
+// two-stage ring.  The SSD kernel's blocks are one warpgroup each; the
+// FPCA kernel's are two, walking 128-row tiles of its patch matrix.
 
 #pragma once
 
@@ -87,6 +92,11 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool o
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(ok ? 16 : 0)
                : "memory");
 }
+// 16 bytes global -> shared of which the first `bytes` (0, 4, 8, 12 or 16)
+// are read and the rest land as zeros
+__device__ __forceinline__ void cp_async16_n(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes) : "memory");
+}
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool ok) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(ok ? 4 : 0)
                : "memory");
@@ -120,6 +130,11 @@ template <int N>
 __device__ __forceinline__ void pin(uint32_t (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+template <int A, int B>
+__device__ __forceinline__ void pin(uint32_t (&r)[A][B]) {
+#pragma unroll
+  for (int i = 0; i < A; ++i) pin(r[i]);
 }
 
 // Tiles live in shared memory in the 128-byte-swizzle layout of wgmma: a
@@ -167,6 +182,14 @@ __device__ __forceinline__ constexpr uint64_t kmajor_step(int R, int kk) {
 // 1024 B apart (SBO).  Rows [16 kk, 16 kk + 16) start 2048 kk bytes on.
 __device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int R) { return desc(tile, R * 128, 1024); }
 __device__ __forceinline__ constexpr uint64_t mnmajor_step(int kk) { return static_cast<uint64_t>(kk * 2048 >> 4); }
+// No-swizzle ("interleave") descriptor of a K-major operand stored as 8-row x
+// 16-byte core matrices of 128 contiguous bytes: lbo = the byte step between
+// core matrices along K, sbo = between 8-row groups.  A k-step of 16 bf16 is
+// two core matrices along K, so it starts 2 lbo bytes on.
+__device__ __forceinline__ uint64_t desc_interleave(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32);
+}
 // Rebuilt from the tile address on every tile: the compiler would otherwise
 // hold every k-step's descriptor of the stationary tiles in registers for the
 // whole walk (32 registers at D = 128), which spills the dK/dV kernel.
@@ -190,7 +213,31 @@ __device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da, uin
 }
 
 // RS wgmma: A from registers (a bf16 fragment), B from shared memory read
-// MN-major (kTransB 1, "tb") or K-major (0)
+// MN-major (kTransB 1, "tb") or K-major (0); N = 16, 32, 64 or 128 output
+// columns (8, 16, 32 or 64 accumulator registers)
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(kTransB));
+}
+
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(kTransB));
+}
+
 template <int kTransB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
@@ -255,6 +302,26 @@ __device__ __forceinline__ void split(const float (&x)[32], uint32_t (&hi)[16], 
     hi[j] = *reinterpret_cast<const uint32_t*>(&h);
     lo[j] = *reinterpret_cast<const uint32_t*>(&l);
   }
+}
+
+// The six passes of a split product, in order: (A part, B part), parts
+// 0 = hi, 1 = mid, 2 = lo
+__device__ __forceinline__ constexpr int pass_a(int i) { return i == 2 || i == 5 ? 1 : i == 4 ? 2 : 0; }
+__device__ __forceinline__ constexpr int pass_b(int i) { return i == 1 || i == 5 ? 1 : i == 3 ? 2 : 0; }
+
+// two f32 -> their bf16 hi, mid and lo parts, packed in pairs (a low, b
+// high).  hi is x's top 16 bits (x truncated to bf16), mid the top 16 bits
+// of x - hi, lo = x - hi - mid, which has at most 8 significant bits and so
+// is a bf16 exactly: hi + mid + lo = x, |mid| < 2^-7 |x|, |lo| < 2^-15 |x|.
+// Masks, subtractions and byte permutes only: no conversion instruction.
+__device__ __forceinline__ void split3(float a, float b, uint32_t& hi, uint32_t& mid, uint32_t& lo) {
+  const uint32_t ua = __float_as_uint(a), ub = __float_as_uint(b);
+  const float ra = a - __uint_as_float(ua & 0xffff0000u), rb = b - __uint_as_float(ub & 0xffff0000u);
+  const uint32_t va = __float_as_uint(ra), vb = __float_as_uint(rb);
+  const float la = ra - __uint_as_float(va & 0xffff0000u), lb = rb - __uint_as_float(vb & 0xffff0000u);
+  hi = __byte_perm(ua, ub, 0x7632);
+  mid = __byte_perm(va, vb, 0x7632);
+  lo = __byte_perm(__float_as_uint(la), __float_as_uint(lb), 0x7632);
 }
 
 // acc += (hi + lo) . tile over the 64 rows of a streamed tile read

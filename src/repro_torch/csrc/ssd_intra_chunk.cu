@@ -31,7 +31,8 @@
 // the same FLOP take 0.677 ms at 67 TFLOP/s.)
 //
 // The tensor-core design (namespace tc; the swizzle, descriptor and wgmma
-// helpers are shared with the flash kernels in hopper_tc.cuh).  Every f32
+// helpers are shared with the flash kernels in hopper_tc.cuh, the split and
+// pass order with the fpca kernel).  Every f32
 // operand x is split into three bf16 parts by truncation: hi = x's top 16
 // bits, mid = the top 16 bits of x - hi, lo = x - hi - mid (at most 8
 // significant bits, so a bf16 exactly), whose sum is x; masks, subtractions
@@ -307,26 +308,6 @@ struct Layout {
   static constexpr uint32_t kCum = kX + 3 * kXPart;         // then cum[Q] and dec[Q]
   static constexpr size_t kSmem = 1024 + kCum + 2 * kChunk * sizeof(float);
 };
-
-// The six passes of a split product, in order: (A part, B part), parts
-// 0 = hi, 1 = mid, 2 = lo
-__device__ __forceinline__ constexpr int pass_a(int i) { return i == 2 || i == 5 ? 1 : i == 4 ? 2 : 0; }
-__device__ __forceinline__ constexpr int pass_b(int i) { return i == 1 || i == 5 ? 1 : i == 3 ? 2 : 0; }
-
-// two f32 -> their bf16 hi, mid and lo parts, packed in pairs (a low, b
-// high).  hi is x's top 16 bits (x truncated to bf16), mid the top 16 bits
-// of x - hi, lo = x - hi - mid, which has at most 8 significant bits and so
-// is a bf16 exactly: hi + mid + lo = x, |mid| < 2^-7 |x|, |lo| < 2^-15 |x|.
-// Masks, subtractions and byte permutes only: no conversion instruction.
-__device__ __forceinline__ void split3(float a, float b, uint32_t& hi, uint32_t& mid, uint32_t& lo) {
-  const uint32_t ua = __float_as_uint(a), ub = __float_as_uint(b);
-  const float ra = a - __uint_as_float(ua & 0xffff0000u), rb = b - __uint_as_float(ub & 0xffff0000u);
-  const uint32_t va = __float_as_uint(ra), vb = __float_as_uint(rb);
-  const float la = ra - __uint_as_float(va & 0xffff0000u), lb = rb - __uint_as_float(vb & 0xffff0000u);
-  hi = __byte_perm(ua, ub, 0x7632);
-  mid = __byte_perm(va, vb, 0x7632);
-  lo = __byte_perm(__float_as_uint(la), __float_as_uint(lb), 0x7632);
-}
 
 // a bf16 pair (low, high) -> two f32, exactly
 __device__ __forceinline__ float2 unpack(uint32_t v) {

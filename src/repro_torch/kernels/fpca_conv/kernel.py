@@ -18,6 +18,16 @@ output.  :func:`fpca_conv_cuda` launches the hand-written kernel in
 math in plain PyTorch (the CPU path, and the kernel's yardstick on the card).
 The patch matrix is not lane-padded: ``n_real`` is the spec's active pixel
 count, and every slot is real.
+
+The kernel has two designs in the one source, chosen by :func:`design`:
+``"wgmma"`` (the three dot products on bf16 tensor cores, every f32 operand
+split into three bf16 parts and each product run as six passes; a
+persistent grid walking 128-row tiles) for at most 80 pixel slots and 8
+channels under the default bucket model (5 buckets, 15 f_avg terms) with a
+16-byte-aligned patch matrix, ``"simt"`` (f32 FMAs on CUDA cores) for
+everything else.  The choice is made before the launch, never after a
+failure; a failed launch raises.  Beside ``.launches`` the wrapper counts
+its launches per design in ``.designs``.
 """
 
 from __future__ import annotations
@@ -39,7 +49,15 @@ __all__ = [
     "weight_planes",
     "fpca_conv_basis",
     "fpca_conv_cuda",
+    "design",
+    "DESIGNS",
 ]
+
+DESIGNS = ("wgmma", "simt")
+# what the tensor-core design takes: pixel slots (five k-steps of 16),
+# channels (one accumulator column block), and the bucket model its
+# epilogue is compiled for (f_avg of degree <= 4 in the window mean)
+TC_MAX_PIXELS, TC_MAX_CHANNELS, TC_BUCKETS, TC_AVG_TERMS, TC_MAX_AVG_POWER = 80, 8, 5, 15, 4
 
 # Monomial pairs of the degree-3 bucket surfaces; the kernel combines them
 # in this order (the fit's own order).
@@ -84,7 +102,9 @@ class ConvTables:
     """Constants of one executable, built once by :func:`conv_tables`.
 
     ``packed`` is the kernel's copy: scalars, f_avg exponents and the bucket
-    combine tables in one small float32 buffer on the device.
+    combine tables in one small float32 buffer on the device (the SIMT
+    design reads it); ``packed_host`` is the same buffer on the host (the
+    tensor-core design passes it to the kernel by value).
     """
 
     model: BucketCurvefitModel
@@ -95,6 +115,7 @@ class ConvTables:
     levels: int
     mask: torch.Tensor        # (N,) ones — every slot of an unpadded window is real
     packed: torch.Tensor      # (_P_SIZE,) float32
+    packed_host: np.ndarray   # (_P_SIZE,) float32
 
 
 def conv_tables(
@@ -130,6 +151,7 @@ def conv_tables(
         levels=adc.levels,
         mask=torch.ones(n_real, device=device),
         packed=torch.as_tensor(packed, device=device),
+        packed_host=packed,
     )
 
 
@@ -174,12 +196,27 @@ def fpca_conv_basis(
     """The kernel's math in plain PyTorch: counts ``(M, C)``, float32 and
     integer-valued.  ``row_valid (M,)`` marks the real rows of a region-skip
     compacted bucket; rows with 0 come out as exact zeros."""
-    model = tables.model
     x = patches.float()
-    x2, x3 = x * x, x * x * x
-    xp = {1: x, 2: x2, 3: x3}
+    xp = {1: x, 2: x * x, 3: x * x * x}
     maskv = tables.mask[:, None]
     rv = {a: xp[a] @ maskv for a in (1, 2, 3)}                 # (M, 1) each
+    mm = [{(a, b): xp[a] @ planes["w_pows"][p, b - 1] for (a, b) in _MM_PAIRS} for p in (0, 1)]
+    return basis_epilogue(rv, mm, planes, tables, bn_offset, row_valid=row_valid)
+
+
+def basis_epilogue(
+    rv: dict,
+    mm: list[dict],
+    planes: dict,
+    tables: ConvTables,
+    bn_offset: torch.Tensor,
+    *,
+    row_valid: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Counts from the window sums ``rv[a] (M, 1)`` (a = 1..3) and each
+    phase's dot products ``mm[p][(a, b)] (M, C)``: the f_avg estimate, the
+    gate bank and the SS-ADC readout of :func:`fpca_conv_basis`."""
+    model = tables.model
     mean_i = rv[1] / tables.n_real
     a_i = torch.cat([_ipow(mean_i, int(a)) for a, _ in model.f_avg.exps], dim=1)
     nb = model.n_buckets
@@ -187,7 +224,6 @@ def fpca_conv_basis(
     k = model.sharpness
 
     def one_phase(p: int) -> torch.Tensor:
-        mm = {(a, b): xp[a] @ planes["w_pows"][p, b - 1] for (a, b) in _MM_PAIRS}
         cs = planes["cs"][p]
         xg = (a_i @ planes["aw"][p]) / model.v_range           # (M, C)
         v_pred = torch.zeros_like(xg)
@@ -196,7 +232,7 @@ def fpca_conv_basis(
             gate = torch.sigmoid(k * (xg - lo)) + torch.sigmoid(k * (hi - xg)) - 1.0
             acc = torch.full_like(xg, float(tables.const[i]))
             for (a, b), c in tables.by_pair.items():
-                term = cs[b][None, :] if a == 0 else rv[a] if b == 0 else mm[(a, b)]
+                term = cs[b][None, :] if a == 0 else rv[a] if b == 0 else mm[p][(a, b)]
                 acc = acc + float(c[i]) * term
             v_pred = v_pred + gate * acc
         return v_pred
@@ -215,7 +251,7 @@ def _launcher() -> ctypes._CFuncPtr:
     from repro_torch.kernels import _build
 
     fn = _build.load("fpca_conv").fpca_conv_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -228,6 +264,25 @@ def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> No
         )
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def design(patches: torch.Tensor, tables: ConvTables, n_channels: int) -> str:
+    """The kernel design a launch on these inputs takes: ``"wgmma"`` for at
+    most ``TC_MAX_PIXELS`` pixel slots and ``TC_MAX_CHANNELS`` channels, a
+    model with ``TC_BUCKETS`` buckets and ``TC_AVG_TERMS`` f_avg terms of
+    degree at most ``TC_MAX_AVG_POWER`` in the window mean (the epilogue the
+    kernel is compiled for) and a 16-byte-aligned patch matrix (its tiles
+    come in by 16-byte copies); ``"simt"`` otherwise."""
+    model = tables.model
+    takes = (
+        patches.shape[1] <= TC_MAX_PIXELS
+        and n_channels <= TC_MAX_CHANNELS
+        and model.n_buckets == TC_BUCKETS
+        and len(model.f_avg.exps) == TC_AVG_TERMS
+        and max(int(a) for a, _ in model.f_avg.exps) <= TC_MAX_AVG_POWER
+        and patches.data_ptr() % 16 == 0
+    )
+    return "wgmma" if takes else "simt"
 
 
 def fpca_conv_cuda(
@@ -244,7 +299,8 @@ def fpca_conv_cuda(
     ``bn_offset (C,)``, ``row_valid (M,)`` optional.  A CPU ``patches``
     takes :func:`fpca_conv_basis`; a CUDA one launches the kernel on the
     current stream, or raises.  Every launch adds one to
-    ``fpca_conv_cuda.launches``.
+    ``fpca_conv_cuda.launches`` and to its design's count in
+    ``fpca_conv_cuda.designs`` (:func:`design`).
     """
     if patches.device.type == "cpu":
         return fpca_conv_basis(patches, planes, tables, bn_offset, row_valid=row_valid)
@@ -265,18 +321,31 @@ def fpca_conv_cuda(
     if row_valid is not None:
         _check("row_valid", row_valid, (M,), dev)
     out = torch.empty((M, C), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = _launcher()(
-            patches.data_ptr(), planes["w_pows"].data_ptr(), planes["cs"].data_ptr(),
-            planes["aw"].data_ptr(), bn_offset.data_ptr(),
-            None if row_valid is None else row_valid.data_ptr(),
-            tables.packed.data_ptr(), out.data_ptr(),
-            M, N, C, T, torch.cuda.current_stream(dev).cuda_stream,
-        )
+    chosen = design(patches, tables, C)
+    err = _launch(patches, planes, tables, bn_offset, row_valid, out, tensor_cores=chosen == "wgmma")
     if err:
-        raise RuntimeError(f"fpca_conv kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"fpca_conv kernel ({chosen}) launch failed with CUDA error {err}")
     fpca_conv_cuda.launches += 1
+    fpca_conv_cuda.designs[chosen] += 1
     return out
 
 
+def _launch(patches, planes, tables, bn_offset, row_valid, out, *, tensor_cores: bool) -> int:
+    """One launch of the C entry point on checked inputs; returns its CUDA
+    error code (0 on success) and counts nothing.  :func:`fpca_conv_cuda`
+    is the caller; a script may call it to time one design beside the
+    other."""
+    M, N = patches.shape
+    with torch.cuda.device(patches.device):
+        return _launcher()(
+            patches.data_ptr(), planes["w_pows"].data_ptr(), planes["cs"].data_ptr(),
+            planes["aw"].data_ptr(), bn_offset.data_ptr(),
+            None if row_valid is None else row_valid.data_ptr(),
+            tables.packed.data_ptr(), tables.packed_host.ctypes.data, out.data_ptr(),
+            M, N, out.shape[1], planes["aw"].shape[1], tables.model.n_buckets, int(tensor_cores),
+            torch.cuda.current_stream(patches.device).cuda_stream,
+        )
+
+
 fpca_conv_cuda.launches = 0
+fpca_conv_cuda.designs = dict.fromkeys(DESIGNS, 0)

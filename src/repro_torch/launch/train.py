@@ -76,11 +76,12 @@ def main(argv: list[str] | None = None) -> int:
                                         global_batch=args.global_batch, seed=args.seed))
     prefetch = PrefetchIterator(stream.batch_at, start_step=start_step, timeout_s=120.0)
 
-    stop = {"flag": False}
+    stop = {"signal": None}
 
     def _graceful(signum, frame):  # noqa: ARG001
-        print(f"[train] signal {signum}: checkpointing and exiting", flush=True)
-        stop["flag"] = True
+        # only a flag: a print here, landing inside the loop's own print,
+        # raised "reentrant call" on stdout and killed the run
+        stop["signal"] = signum
 
     signal.signal(signal.SIGTERM, _graceful)
     signal.signal(signal.SIGINT, _graceful)
@@ -95,7 +96,7 @@ def main(argv: list[str] | None = None) -> int:
     losses = []
     step = start_step
     try:
-        while step < args.steps and not stop["flag"]:
+        while step < args.steps and stop["signal"] is None:
             got_step, batch = next(prefetch)
             assert got_step == step, f"pipeline cursor mismatch {got_step} != {step}"
             batch = {k: torch.as_tensor(v, dtype=torch.long, device=dev) for k, v in batch.items()}
@@ -115,6 +116,8 @@ def main(argv: list[str] | None = None) -> int:
                 checkpoint(step)
     finally:
         prefetch.close()
+    if stop["signal"] is not None:
+        print(f"[train] signal {stop['signal']}: checkpointing and exiting", flush=True)
     checkpoint(step)
     if len(losses) >= 20:
         first, last = np.mean(losses[:10]), np.mean(losses[-10:])

@@ -7,7 +7,10 @@ without JAX:
 Tolerances, each kernel against its plain PyTorch version on the card:
 - fpca_conv: at most 1 ADC count and fewer than 5% of counts off (sums in
   another order can cross a round-half boundary); padding rows of a
-  region-skip bucket are exact zeros.
+  region-skip bucket are exact zeros.  The tensor-core design holds the
+  same limit: it splits each f32 operand into three bf16 parts and runs six
+  passes, within the f32 spread of the plain version in its host emulation
+  (tests/test_torch_fpca_tc.py).
 - flash attention: float32 within 1e-4 (f32 sums in another order); bf16
   and fp16 within one unit in the last place of the output type
   (rtol 2**-7 resp. 2**-10, plus 1e-4): both sides compute in f32 and round
@@ -52,6 +55,7 @@ from repro_torch.kernels.fpca_conv.kernel import (
     fpca_conv_cuda,
     weight_planes,
 )
+from repro_torch.kernels.fpca_conv.kernel import design as fpca_design
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_cuda
 from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref
@@ -83,19 +87,39 @@ def _inputs(m: int, n: int, c: int, dev: torch.device, seed: int = 0):
     return patches, w, w.roll(1, dims=1), bn
 
 
-@pytest.mark.parametrize("m,n,c", [(1, 75, 1), (127, 75, 8), (129, 75, 13), (5000, 75, 16),
-                                   (300, 27, 8), (300, 48, 5)])
+@pytest.mark.parametrize("m,n,c,chosen", [
+    (1, 75, 1, "wgmma"), (127, 75, 8, "wgmma"), (129, 75, 13, "simt"), (5000, 75, 16, "simt"),
+    (300, 27, 8, "wgmma"), (300, 48, 5, "wgmma"),
+    (1000, 75, 8, "wgmma"),     # a ragged last tile (7 full tiles and 104 rows)
+    (100, 75, 8, "wgmma"),      # fewer rows than a tile
+    (300, 81, 8, "simt"),       # more pixel slots than the padded K
+])
 @pytest.mark.parametrize("bits", [8, 16])
-def test_kernel_matches_plain_version(cuda, model, m, n, c, bits):
-    """Ragged rows and channel tiles, odd and even pixel counts."""
+def test_kernel_matches_plain_version(cuda, model, m, n, c, chosen, bits):
+    """Ragged rows and channel tiles, odd and even pixel counts; each case
+    takes the design it names."""
+    _check_kernel(cuda, model, m, n, c, chosen, bits)
+
+
+def test_kernel_matches_plain_version_at_the_served_size(cuda, model):
+    """M = 147,456 windows (fpca_cnn at batch 256: many tiles per persistent
+    block) at the served 8-bit ADC.  At 16 bits these uniform inputs put
+    both designs 2 counts off the plain version on a few counts (on an
+    H100): the two phases' f32 spreads add there, whichever design
+    computes them."""
+    _check_kernel(cuda, model, 147456, 75, 8, "wgmma", 8)
+
+
+def _check_kernel(cuda, model, m, n, c, chosen, bits):
     patches, w_pos, w_neg, bn = _inputs(m, n, c, cuda, seed=m + n + c)
     tables = conv_tables(model, ADCConfig(bits=bits), n, cuda)
     planes = weight_planes(w_pos, w_neg, tables)
-    before = fpca_conv_cuda.launches
+    before, designs = fpca_conv_cuda.launches, dict(fpca_conv_cuda.designs)
     got = fpca_conv_cuda(patches, planes, tables, bn)
     want = fpca_conv_basis(patches, planes, tables, bn)
     torch.cuda.synchronize()
     assert fpca_conv_cuda.launches == before + 1
+    assert fpca_conv_cuda.designs == {**designs, chosen: designs[chosen] + 1}
     diff = (got - want).abs()
     assert float(diff.max()) <= 1.0
     assert float((diff > 0).float().mean()) < 0.05
@@ -103,6 +127,42 @@ def test_kernel_matches_plain_version(cuda, model, m, n, c, bits):
     got_v = fpca_conv_cuda(patches, planes, tables, bn, row_valid=valid)
     assert bool((got_v[valid == 0] == 0).all())
     assert torch.equal(got_v[valid == 1], got[valid == 1])
+
+
+@pytest.mark.parametrize("cut,chosen", [(1, "simt"), (4, "wgmma")])
+def test_kernel_reads_a_patch_matrix_that_starts_inside_an_allocation(cuda, model, cut, chosen):
+    """Rows cut from the front of a wider matrix: a start 300 bytes in is
+    not 16-byte aligned and goes to the SIMT design, one 1200 bytes in is
+    and takes the tensor-core design; both agree with the plain version."""
+    patches, w_pos, w_neg, bn = _inputs(777 + cut, 75, 8, cuda, seed=cut)
+    patches = patches[cut:]
+    tables = conv_tables(model, ADCConfig(), 75, cuda)
+    planes = weight_planes(w_pos, w_neg, tables)
+    assert fpca_design(patches, tables, 8) == chosen
+    designs = dict(fpca_conv_cuda.designs)
+    got = fpca_conv_cuda(patches, planes, tables, bn)
+    want = fpca_conv_basis(patches, planes, tables, bn)
+    torch.cuda.synchronize()
+    assert fpca_conv_cuda.designs == {**designs, chosen: designs[chosen] + 1}
+    diff = (got - want).abs()
+    assert float(diff.max()) <= 1.0 and float((diff > 0).float().mean()) < 0.05
+
+
+@pytest.mark.parametrize("m", [100, 36864])
+def test_tensor_core_kernel_is_deterministic_and_keeps_real_rows_exact(cuda, model, m):
+    """Two launches are bit-equal; with row_valid, padding rows are exact
+    zeros and real rows bit-equal to the launch without it."""
+    patches, w_pos, w_neg, bn = _inputs(m, 75, 8, cuda, seed=m)
+    tables = conv_tables(model, ADCConfig(), 75, cuda)
+    planes = weight_planes(w_pos, w_neg, tables)
+    assert fpca_design(patches, tables, 8) == "wgmma"
+    first = fpca_conv_cuda(patches, planes, tables, bn)
+    assert torch.equal(fpca_conv_cuda(patches, planes, tables, bn), first)
+    valid = (torch.rand(m, generator=torch.Generator().manual_seed(m)) < 0.3).float().to(cuda)
+    got_v = fpca_conv_cuda(patches, planes, tables, bn, row_valid=valid)
+    torch.cuda.synchronize()
+    assert torch.equal(got_v[valid == 0], torch.zeros_like(got_v[valid == 0]))
+    assert torch.equal(got_v[valid == 1], first[valid == 1])
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda, model):
@@ -128,12 +188,13 @@ def test_compiled_model_launches_the_kernel_and_matches_basis(cuda, model):
     m = fpca.compile(prog, weights=kernel, head_params=head, model=model)
     b = fpca.compile(prog, backend="basis", device=cuda, weights=kernel, head_params=head, model=model)
     assert m.backend.name == "cuda" and m.device.type == "cuda"
-    before = fpca_conv_cuda.launches
+    before, wgmma = fpca_conv_cuda.launches, fpca_conv_cuda.designs["wgmma"]
     counts = m.run_frontend_weighted(m.kernel, m.bn_offset, frames)
     block = torch.zeros((6, 6), dtype=torch.bool)
     block[2:4, 1:5] = True
     logits = m.run(frames, block_mask=block)
     assert fpca_conv_cuda.launches == before + 2
+    assert fpca_conv_cuda.designs["wgmma"] == wgmma + 2   # dense and compacted, both on the tensor cores
     want = b.run_frontend_weighted(b.kernel, b.bn_offset, frames)
     diff = (counts - want).abs()
     assert float(diff.max()) <= 1.0 and float((diff > 0).float().mean()) < 0.05
