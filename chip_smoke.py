@@ -20,6 +20,23 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  In order it
    two designs at the windows of batch 1, 64 and 256, beside a bound of
    four parts (bytes, tensor-core, fp32 and MUFU operations);
 
+then, through the same kernel, the model zoo and int8 head serving:
+
+7a. builds fpca_resnet (residual graph head: width 16, hidden 32, 2
+   classes) and fpca_detect (detection head: trunk 16, 2 classes, per-cell
+   scores and boxes) with ``build_model`` at full width, serves each the
+   five requests above with the counts set to 0 before and read after,
+   checks one launch per request that is not all skipped, every one on the
+   tensor-core design, the output shapes, ``run`` == head(frontend counts)
+   bit for bit, counts against the dense oracle, compact == masked dense
+   and a head rewrite that builds nothing; times each request and profiles
+   one at batch 256;
+7b. serves fpca_cnn and fpca_resnet with ``precision="int8"`` (heads
+   calibrated on the counts of the batch-64 frames) the same way, and checks
+   every quantised stage's int32 accumulators on the card against the
+   host's on the same inputs, bit for bit, and the int8 logits against the
+   host's int8 head; prints the int8-vs-f32 parity;
+
 then the language-model serving path (``repro_torch.launch.serve``):
 
 8. initialises zamba2-7b at full width (d_model 3584, 81 Mamba2 layers, one
@@ -141,6 +158,15 @@ SSD_PASSES = FPCA_PASSES = 6
 # the three sums, 5 N FLOP.
 FPCA_FLOP_PER_EDGE, FPCA_FLOP_PER_BUCKET, FPCA_MUFU_PER_EDGE, FPCA_MUFU_EXTRA = 3, 23, 2, 2
 COUNT_TOL, FLIP_TOL = 1.0, 0.05   # <= 1 ADC count, < 5% of counts off
+# the zoo's graph-head archs, and the archs served with an int8 head
+ZOO_ARCHS, INT8_ARCHS = ("fpca_resnet", "fpca_detect"), ("fpca_cnn", "fpca_resnet")
+# int8 logits card vs host from the same counts and quantised parameters,
+# as a share of max|logit|: every stage's int32 accumulators agree exactly;
+# the f32 ops between stages (an avg-pool summed in another order) can move
+# a value by an ulp, and where that crosses a rounding point a later stage's
+# requantised input moves one step, its output by s_x * s_w * |w_q| (about
+# max|x| * max|w| / 127)
+INT8_LOGIT_RTOL = 1e-2
 
 # LM serving path: zamba2-7b at full width, 8 requests of 4096 tokens in
 # waves of 4, 32 greedy tokens each
@@ -294,44 +320,15 @@ def main() -> None:
                  ("all skipped b=64", frames[64], np.zeros((bh, bw), bool))]
 
     # ---- 5. the main path, with the launch counts ---------------------------
-    for label, x, mask in requests:          # warm-up: first-call costs out of the timing
-        model.run(x, block_mask=mask)
-    torch.cuda.synchronize()
-    fpca_conv_cuda.launches = 0
-    fpca_conv_cuda.designs = dict.fromkeys(fpca_conv_cuda.designs, 0)
-    served = []
-    for label, x, mask in requests:
-        before = fpca_conv_cuda.launches
-        t0 = time.perf_counter()
-        logits = model.run(x, block_mask=mask)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        launched = fpca_conv_cuda.launches - before
-        served.append((label, x, mask, logits))
+    served = {}
+
+    def check_out(label, x, logits):
+        served[label] = logits
         check(tuple(logits.shape) == (x.shape[0], prog.n_classes), f"{label}: logits {tuple(logits.shape)}")
         check(bool(torch.isfinite(logits).all()), f"{label}: non-finite logits")
-        skipped = mask is not None and not mask.any()
-        check(launched == (0 if skipped else 1), f"{label}: {launched} fpca_conv launches")
-        print(f"request {label}: {ms:.3f} ms host clock, fpca_conv launches {launched}")
-    launches, designs = fpca_conv_cuda.launches, dict(fpca_conv_cuda.designs)
-    check(launches >= 1, "the main path never launched fpca_conv_cuda")
-    print(f"main path: {len(requests)} requests, fpca_conv_cuda launches {launches} by design {designs}, "
-          f"stats {model.stats.snapshot()}")
-    check(designs["wgmma"] == launches, f"fpca launches by design {designs}: every served launch must take the "
-          "tensor-core design")
 
-    # request latency, host clock around synchronised runs (median of 10)
-    latency = {}
-    for label, x, mask in requests:
-        times = []
-        for _ in range(10):
-            t0 = time.perf_counter()
-            model.run(x, block_mask=mask)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        latency[label] = statistics.median(times)
-        print(f"latency {label}: median {latency[label]:.3f} ms "
-              f"({x.shape[0] / latency[label] * 1e3:.1f} frames/s)")
+    launches, designs, latency = serve_requests("fpca_cnn", model, requests, check_out)
+    print(f"fpca_cnn stats {model.stats.snapshot()}")
 
     # ---- 6a. kernel vs plain version at the path's full shape ----------------
     w_pos, w_neg = encode_weights(kernel.to(dev), spec, prog.frontend.enc)
@@ -370,7 +367,8 @@ def main() -> None:
     bound = logit_bound(head, c_cuda - c_ref, prog.input_scale) + 1e-4 * l_ref.abs() + 1e-4
     print(f"served logits vs oracle: max|Δlogit| {float((l_cuda - l_ref).abs().max()):.3e}")
     check(bool(((l_cuda - l_ref).abs() <= bound).all()), "logits differ by more than the count bound")
-    label, x, mask, logits = served[3]
+    label, x, mask = requests[3]
+    logits = served[label]
     keep = torch.as_tensor(active_window_mask(spec, mask), device=dev)
     dense = model.run_frontend_weighted(model.kernel, model.bn_offset, x)
     compact = model.run_frontend_weighted(model.kernel, model.bn_offset, x,
@@ -441,6 +439,13 @@ def main() -> None:
         # no single PyTorch call computes the bucket-gated basis bank
         "library_ms": None,
     }
+    by_path = {"fpca_cnn": launches}
+    by_path.update(zoo_phase(dev, smi, bucket_model, requests))
+    by_path.update(int8_phase(dev, smi, bucket_model, requests))
+    fpca_entry["launches"] = sum(by_path.values())
+    fpca_entry["launches_by_path"] = by_path
+    gc.collect()
+    torch.cuda.empty_cache()
     flash_entry, ssd_entry = lm_phase(dev, smi)
     gc.collect()
     torch.cuda.empty_cache()
@@ -477,6 +482,210 @@ def profile_device(fn, runs: int) -> tuple[float, list[str]]:
         f"{e.key[:60]:60s} {e.device_time_total / runs / 1e3:.4f} ms/run "
         f"({100 * e.device_time_total / total:.1f}%) x{e.count // runs}" for e in events[:8]
     ]
+
+
+# ---------------------------------------------------------------------------
+# the model zoo (graph heads) and int8 head serving, through the fpca kernel
+# ---------------------------------------------------------------------------
+
+
+def _reset_fpca_counts() -> None:
+    fpca_conv_cuda.launches = 0
+    fpca_conv_cuda.designs = dict.fromkeys(fpca_conv_cuda.designs, 0)
+
+
+def _raw(out) -> torch.Tensor:
+    """A run's raw head output: the logits, or a detection map re-joined."""
+    return torch.cat([out.scores, out.boxes], -1) if isinstance(out, fpca.Detections) else out
+
+
+def serve_requests(label: str, model, requests: list, check_out) -> tuple[int, dict, dict]:
+    """Serve ``requests`` once to warm up, then once with the fpca counts set
+    to 0 just before and read just after; ``check_out(req, x, out)`` checks
+    each output.  Returns the launches, the launches by design and the request
+    latencies (host clock, median of 10)."""
+    for _, x, mask in requests:              # warm-up: first-call costs out of the timing
+        model.run(x, block_mask=mask)
+    torch.cuda.synchronize()
+    _reset_fpca_counts()
+    for req, x, mask in requests:
+        before = fpca_conv_cuda.launches
+        t0 = time.perf_counter()
+        out = model.run(x, block_mask=mask)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launched = fpca_conv_cuda.launches - before
+        skipped = mask is not None and not mask.any()
+        check(launched == (0 if skipped else 1), f"{label} {req}: {launched} fpca_conv launches")
+        check_out(req, x, out)
+        print(f"request {label} {req}: {ms:.3f} ms host clock, fpca_conv launches {launched}")
+    launches, designs = fpca_conv_cuda.launches, dict(fpca_conv_cuda.designs)
+    check(launches >= 1, f"{label}: the path never launched fpca_conv_cuda")
+    check(designs["wgmma"] == launches, f"{label}: fpca launches by design {designs}, every one must take the "
+          "tensor-core design")
+    print(f"{label}: {len(requests)} requests, fpca_conv_cuda launches {launches} by design {designs}")
+    latency = {}
+    for req, x, mask in requests:
+        times = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            model.run(x, block_mask=mask)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        latency[req] = statistics.median(times)
+        print(f"latency {label} {req}: median {latency[req]:.3f} ms ({x.shape[0] / latency[req] * 1e3:.1f} frames/s)")
+    return launches, designs, latency
+
+
+def zoo_phase(dev: torch.device, smi: str, bucket_model, requests: list) -> dict:
+    """Serve fpca_resnet and fpca_detect at the zoo's defaults (full width:
+    120x120x3 frames, 8 frontend channels) on the default backend; check
+    shapes, launches and designs, run == head(frontend) bit for bit, counts
+    against the dense oracle, compact == masked dense, and a head rewrite
+    that builds nothing; time each request and profile one at batch 256."""
+    launches = {}
+    for i, arch in enumerate(ZOO_ARCHS):
+        prog = fpca.build_model({"arch": arch})
+        check(prog.arch == arch and prog.spec == fpca_cnn.FRONTEND_SPEC, f"{arch}: not the zoo's full-width default")
+        g = torch.Generator().manual_seed(SEED + 1 + i)
+        kernel = torch.randn(prog.frontend.kernel_shape, generator=g) * 0.3
+        bn = torch.randint(0, 24, (prog.out_channels,), generator=g).float()
+        head = prog.init_head(g, device=dev)
+        model = fpca.compile(prog, device=dev, weights=kernel, bn_offset=bn, head_params=head, model=bucket_model)
+        check(model.backend.name == "cuda", f"{arch}: default backend on the card is {model.backend.name}")
+
+        def check_out(req, x, out, arch=arch, prog=prog):
+            b = x.shape[0]
+            if arch == "fpca_detect":
+                check(isinstance(out, fpca.Detections), f"{arch} {req}: run returned {type(out).__name__}")
+                check(tuple(out.scores.shape) == (b, 24, 24, 2) and tuple(out.boxes.shape) == (b, 24, 24, 4),
+                      f"{arch} {req}: scores {tuple(out.scores.shape)}, boxes {tuple(out.boxes.shape)}")
+            else:
+                check(tuple(out.shape) == (b, prog.n_classes), f"{arch} {req}: logits {tuple(out.shape)}")
+            check(bool(torch.isfinite(_raw(out)).all()), f"{arch} {req}: non-finite output")
+
+        n, designs, latency = serve_requests(arch, model, requests, check_out)
+        launches[arch] = n
+        # run == head(frontend), dense and masked, bit for bit
+        _, x, mask = requests[3]
+        keep = np.broadcast_to(active_window_mask(prog.spec, mask), (x.shape[0],) + prog.frontend.out_shape[:2])
+        for what, wk, bm in (("dense", None, None), ("10% blocks", keep, mask)):
+            counts = model.run_frontend_weighted(model.kernel, model.bn_offset, x, wk)
+            check(torch.equal(_raw(model.run(x, block_mask=bm)), model.head_logits(counts)),
+                  f"{arch} {what}: run differs from head(frontend counts)")
+        dense = model.run_frontend_weighted(model.kernel, model.bn_offset, x)
+        compact = model.run_frontend_weighted(model.kernel, model.bn_offset, x, keep)
+        check(torch.equal(compact, dense * torch.as_tensor(keep.copy(), device=dev)[..., None]),
+              f"{arch}: compacted counts differ from masked dense")
+        ref = fpca.compile(prog, backend="reference", device=dev, weights=kernel, bn_offset=bn, head_params=head,
+                           model=bucket_model)
+        err, flips = count_diff(dense[:2], ref.run_frontend_weighted(ref.kernel, ref.bn_offset, x[:2]))
+        print(f"{arch}: served counts vs dense oracle (2 frames): max|Δcount| {err}, flips {flips:.2e}; "
+              "run == head(frontend) and compact == masked dense, bit for bit")
+        check(err <= COUNT_TOL and flips < FLIP_TOL, f"{arch}: served counts disagree with the oracle")
+        misses = model.cache_info().misses
+        model.reprogram(head_params=prog.init_head(g, device=dev))
+        for _, x, mask in requests:
+            model.run(x, block_mask=mask)
+        check(model.cache_info().misses == misses, f"{arch}: reprogram(head_params=...) built an executable")
+        device_ms, rows = profile_request(model, requests[2][1])
+        print(f"profile {arch} dense b=256 on {smi}: device time {device_ms:.4f} ms per run, busy "
+              f"{device_ms / latency['dense b=256']:.1%} of the median request")
+        for row in rows:
+            print(f"  {row}")
+    return launches
+
+
+def _stage_inputs(prog, qp: dict | list, counts: torch.Tensor) -> list:
+    """(op, stage parameters, stage input) of every quantised stage of one
+    int8 forward pass on ``counts``."""
+    from repro_torch.fpca.program import _evaluate_chain
+    from repro_torch.models import heads, quant
+
+    seen = []
+    x = counts.float() * float(prog.input_scale)
+    if prog.is_graph_head:
+        by_name = {n.name: n.op for n in prog.head.nodes}
+        heads.evaluate(prog.head, x, conv=quant.conv2d_int8, linear=quant.linear_int8, params=qp,
+                       on_stage=lambda name, v: seen.append((by_name[name], qp[name], v)))
+    else:
+        _evaluate_chain(prog.head, x, conv=quant.conv2d_int8, linear=quant.linear_int8, params=qp,
+                        on_stage=lambda i, v: seen.append((prog.head[i], qp[i], v)))
+    return seen
+
+
+def _stage_acc(op, p: dict, x: torch.Tensor) -> torch.Tensor:
+    from repro_torch.models import quant
+
+    if p["w_q"].ndim == 4:
+        stride, padding = (1, "SAME") if isinstance(op, fpca.DetectSpec) else (op.stride, op.padding)
+        return quant.conv2d_int8_acc(p, x, stride, padding)
+    return quant.linear_int8_acc(p, x)
+
+
+def int8_phase(dev: torch.device, smi: str, bucket_model, requests: list) -> dict:
+    """Serve fpca_cnn and fpca_resnet with precision="int8" on the default
+    backend, head calibrated on the counts of the batch-64 frames; check
+    launches and designs, every quantised stage's int32 accumulators on the
+    card against the host's on the same inputs, the int8 logits against the
+    host's, and print the int8-vs-f32 parity; time each request and
+    profile one at batch 256."""
+    from repro_torch.kernels.fpca_conv.ops import make_fpca_conv_executable
+    from repro_torch.models import quant
+
+    try:
+        make_fpca_conv_executable(bucket_model, spec=fpca_cnn.FRONTEND_SPEC, impl="cuda", transfer="int8", device=dev)
+        check(False, "a cuda executable took transfer='int8'")
+    except ValueError as e:
+        check("only lowered by the basis impl" in str(e), f"unexpected refusal: {e}")
+    launches = {}
+    for i, arch in enumerate(INT8_ARCHS):
+        label = f"{arch} int8"
+        prog = fpca.build_model({"arch": arch}).replace(precision="int8")
+        f32 = prog.replace(precision="f32")
+        g = torch.Generator().manual_seed(SEED + 11 + i)
+        kernel = torch.randn(prog.frontend.kernel_shape, generator=g) * 0.3
+        bn = torch.randint(0, 24, (prog.out_channels,), generator=g).float()
+        head32 = f32.init_head(g, device=dev)
+        model = fpca.compile(prog, device=dev, weights=kernel, bn_offset=bn, model=bucket_model)
+        check(model.backend.name == "cuda" and model._frontend_transfer() == "f32",
+              f"{label}: backend {model.backend.name}, transfer {model._frontend_transfer()}")
+        x64 = requests[1][1]
+        counts = model.run_frontend_weighted(model.kernel, model.bn_offset, x64)
+        qp = quant.quantize_head_params(prog, head32, sample_counts=counts)
+        model.reprogram(head_params=qp)
+
+        def check_out(req, x, out, label=label, prog=prog):
+            check(tuple(out.shape) == (x.shape[0], prog.n_classes), f"{label} {req}: logits {tuple(out.shape)}")
+            check(bool(torch.isfinite(out).all()), f"{label} {req}: non-finite logits")
+
+        launches[label], _, latency = serve_requests(label, model, requests, check_out)
+        device_ms, rows = profile_request(model, requests[2][1])
+        print(f"profile {label} dense b=256 on {smi}: device time {device_ms:.4f} ms per run, busy "
+              f"{device_ms / latency['dense b=256']:.1%} of the median request")
+        for row in rows:
+            print(f"  {row}")
+        # int32 accumulators, card vs host, on the same requantised inputs
+        stages = _stage_inputs(prog, model.head_params, counts)
+        for j, (op, p, v) in enumerate(stages):
+            acc = _stage_acc(op, p, v)
+            host = _stage_acc(op, {k: t.cpu() for k, t in p.items()}, v.cpu())
+            check(acc.dtype == torch.int32 and torch.equal(acc.cpu(), host),
+                  f"{label} stage {j} ({type(op).__name__}): int32 accumulators differ card vs host")
+        print(f"{label}: {len(stages)} quantised stages, int32 accumulators on the card equal the host's bit for "
+              f"bit (batch-64 counts; {[tuple(_stage_acc(op, p, v).shape) for op, p, v in stages]})")
+        logits = model.head_logits(counts)
+        host = prog.apply_head(quant.bind_quant_head_params(prog, model.head_params, device="cpu"), counts.cpu())
+        d = float((logits.cpu() - host).abs().max())
+        top = float(host.abs().max())
+        print(f"{label}: int8 logits card vs host from the same counts and quantised parameters: max|Δ| {d:.3e} "
+              f"(max|logit| {top:.3e}; limit {INT8_LOGIT_RTOL:g} of it)")
+        check(d <= INT8_LOGIT_RTOL * top, f"{label}: int8 logits on the card disagree with the host")
+        m32 = fpca.compile(f32, device=dev, weights=kernel, bn_offset=bn, head_params=head32, model=bucket_model)
+        par = quant.logit_parity(m32.run(x64), model.run(x64))
+        print(f"{label} vs f32 on {smi}, batch 64 (reported only): max divergence {par['max_abs_divergence']:.4f}, "
+              f"top-1 agreement {par['top1_agreement']:.4f}")
+    return launches
 
 
 # ---------------------------------------------------------------------------

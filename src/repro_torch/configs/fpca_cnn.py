@@ -17,7 +17,9 @@ N_HIDDEN = 64
 # The digital classifier head: 4608 features -> Dense(64, relu) -> Dense(2).
 HEAD = (DenseSpec(N_HIDDEN, activation="relu"), DenseSpec(N_CLASSES))
 
-# The model-zoo config of the same network (the zoo itself is a later slice).
+# The model-zoo config of the same network: ``build()`` (or
+# ``repro_torch.fpca.zoo.build_model(CFG)``) makes a program with the same
+# signature as make_model_program(), so both share every executable.
 CFG = {
     "arch": "fpca_cnn",
     "spec": FRONTEND_SPEC,
@@ -25,6 +27,13 @@ CFG = {
     "n_classes": N_CLASSES,
     "input_scale": 1.0,
 }
+
+
+def build(cfg=None, **overrides) -> FPCAModelProgram:
+    """Zoo-built twin of :func:`make_model_program` (defaults = ``CFG``)."""
+    from repro_torch.fpca.zoo import build_model
+
+    return build_model({**CFG, **(dict(cfg) if cfg else {})}, **overrides)
 
 
 def make_model_program(

@@ -5,7 +5,9 @@ The reference's objects export plain numpy (``BucketCurvefitModel.to_dict()``,
 
     model = bucket_model_from_dict(ref_model.to_dict())
     head = head_params_from_numpy([{k: np.asarray(v) for k, v in p.items()}
-                                   for p in ref_head_params])
+                                   for p in ref_head_params])    # chain head
+    graph = head_params_from_numpy({n: {k: np.asarray(v) for k, v in p.items()}
+                                    for n, p in ref_graph_params.items()})
     kernel = tensor_from_numpy(np.asarray(ref_kernel))   # on the card by default
     lm = lm_params_from_numpy(jax.tree.map(np.asarray, ref_lm_params))
     opt = adamw_state_from_numpy(*jax.tree.map(np.asarray, tuple(ref_adamw_state)))
@@ -46,13 +48,26 @@ def tensor_from_numpy(a: Any, *, device: str | torch.device | None = None) -> to
 
 
 def head_params_from_numpy(
-    params: Iterable[dict], *, device: str | torch.device | None = None
-) -> list[dict[str, torch.Tensor]]:
-    """Chain-head parameters, one dict per stage (``{}`` for parameterless
-    stages), with the reference's layouts kept: ``(d_in, d_out)`` dense and
-    ``(c_out, k, k, c_in)`` conv weights."""
+    params: Iterable[dict] | dict, *, device: str | torch.device | None = None
+) -> list[dict[str, torch.Tensor]] | dict[str, dict[str, torch.Tensor]]:
+    """Head parameters with the reference's layouts kept: ``(d_in, d_out)``
+    dense and ``(c_out, k, k, c_in)`` conv weights.  A chain head is one
+    dict per stage (``{}`` for parameterless stages), a graph head a dict
+    keyed by node name.  Quantised stages (``w_q``, ``w_scale``, ``b``,
+    ``x_scale``) keep ``w_q`` int8; every other leaf becomes float32."""
     dev = resolve_device(device)
-    return [{k: tensor_from_numpy(v, device=dev) for k, v in dict(p).items()} for p in params]
+
+    def stage(p: dict) -> dict[str, torch.Tensor]:
+        out = {}
+        for k, v in dict(p).items():
+            a = np.asarray(v)
+            out[k] = (torch.tensor(a, dtype=torch.int8, device=dev) if a.dtype == np.int8
+                      else tensor_from_numpy(a, device=dev))
+        return out
+
+    if isinstance(params, dict):
+        return {name: stage(p) for name, p in params.items()}
+    return [stage(p) for p in params]
 
 
 def _leaf_from_numpy(a: Any, dev: torch.device) -> torch.Tensor:

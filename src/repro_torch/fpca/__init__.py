@@ -4,6 +4,10 @@
 
     fe = fpca.compile(fpca.FPCAProgram(spec=fpca.FPCASpec(...)), weights=kernel)
     counts = fe.run(frames)                       # CUDA kernel on the card
+
+    model = fpca.build_model({"arch": "fpca_detect"})   # the model zoo
+    m = fpca.compile(model, weights=kernel, head_params=model.init_head(gen))
+    det = m.run(frames)                           # Detections (scores, boxes)
 """
 
 from repro_torch.core.adc import ADCConfig
@@ -29,34 +33,51 @@ from repro_torch.fpca.program import (
     GateControllerConfig,
     PoolSpec,
     ProgrammedConfig,
+    ProgrammedModel,
     spec_signature,
 )
+from repro_torch.models.heads import AddSpec, ConcatSpec, DetectSpec, Detections, HeadGraph, Node
+from repro_torch.models.quant import calibrate_head_scales, logit_parity, quantize_head_params
+from repro_torch.fpca.zoo import available_archs, build_model, register_arch
 
 __all__ = [
     "ADCConfig",
     "ActivationSpec",
+    "AddSpec",
     "Backend",
     "CacheInfo",
     "CacheInfoVerbose",
     "CircuitParams",
     "CompiledFrontend",
     "CompiledModel",
+    "ConcatSpec",
     "ConvSpec",
     "DeltaGateConfig",
     "DenseSpec",
+    "DetectSpec",
+    "Detections",
     "ExecutableCache",
     "FPCAModelProgram",
     "FPCAProgram",
     "FPCASpec",
     "FrontendStats",
     "GateControllerConfig",
+    "HeadGraph",
+    "Node",
     "PoolSpec",
     "ProgrammedConfig",
+    "ProgrammedModel",
     "WeightEncoding",
+    "available_archs",
     "available_backends",
+    "build_model",
+    "calibrate_head_scales",
     "compile",
     "default_backend_name",
     "get_backend",
+    "logit_parity",
+    "quantize_head_params",
+    "register_arch",
     "register_backend",
     "spec_signature",
 ]

@@ -12,7 +12,8 @@ Built-ins:
   the default on the card.  For CPU tensors it runs the kernel's plain
   version.
 * ``"basis"``     — the kernel's math in plain PyTorch; the default on the
-  host.
+  host, and the one backend that lowers the int8 transfer LUT of
+  ``precision="int8"`` model programs (``quant_transfer``).
 * ``"reference"`` — the dense oracle (predict_sigmoid + updown_readout):
   every window evaluated, skipped ones zeroed after the fact.
 """
@@ -45,12 +46,15 @@ class Backend:
 
     ``bucket_sensitive`` marks backends whose executables differ per
     region-skip row bucket; the dense oracle serves every bucket with one
-    executable, so caches collapse its key.
+    executable, so caches collapse its key.  ``quant_transfer`` marks
+    backends whose ``make_executable`` takes ``transfer="int8"``; the others
+    serve the f32 frontend under an int8 head.
     """
 
     name: str
     make_executable: Callable
     bucket_sensitive: bool = True
+    quant_transfer: bool = False
     description: str = ""
 
     def make_model_executable(
@@ -63,7 +67,12 @@ class Backend:
     ) -> Callable:
         """A whole-model executable: this backend's frontend closure, then
         :meth:`FPCAModelProgram.apply_head`.  Signature
-        ``(images, kernel, bn_offset, head_params[, window_mask]) -> logits``."""
+        ``(images, kernel, bn_offset, head_params[, window_mask]) -> (b,) +
+        head_out_shape``.  A ``precision="int8"`` program on a
+        :attr:`quant_transfer` backend also serves the int8 transfer."""
+        kw = {}
+        if self.quant_transfer and model_program.precision == "int8":
+            kw["transfer"] = "int8"
         frontend = self.make_executable(
             bucket_model,
             spec=model_program.frontend.spec,
@@ -71,6 +80,7 @@ class Backend:
             enc=model_program.frontend.enc,
             m_bucket=m_bucket,
             device=device,
+            **kw,
         )
         head = model_program.apply_head
 
@@ -87,6 +97,7 @@ def register_backend(
     name: str,
     *,
     bucket_sensitive: bool = True,
+    quant_transfer: bool = False,
     description: str = "",
     overwrite: bool = False,
 ) -> Callable[[Callable], Callable]:
@@ -105,6 +116,7 @@ def register_backend(
             name=name,
             make_executable=make_executable,
             bucket_sensitive=bucket_sensitive,
+            quant_transfer=quant_transfer,
             description=description,
         )
         return make_executable
@@ -140,9 +152,11 @@ def _fused_factory(impl: str) -> Callable:
         enc: WeightEncoding | None = None,
         m_bucket: int | None = None,
         device: torch.device,
+        transfer: str = "f32",
     ) -> Callable:
         return make_fpca_conv_executable(
-            model, spec=spec, adc=adc, enc=enc, impl=impl, m_bucket=m_bucket, device=device
+            model, spec=spec, adc=adc, enc=enc, impl=impl, m_bucket=m_bucket, device=device,
+            transfer=transfer,
         )
 
     return make_executable
@@ -155,6 +169,7 @@ register_backend(
 
 register_backend(
     "basis",
+    quant_transfer=True,
     description="the kernel's basis-bank math in plain PyTorch",
 )(_fused_factory("basis"))
 

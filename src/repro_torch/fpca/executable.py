@@ -29,8 +29,10 @@ from repro_torch.core.mapping import FPCASpec, active_window_mask, output_dims
 from repro_torch.device import resolve_device
 from repro_torch.fpca.backends import Backend, default_backend_name, get_backend
 from repro_torch.fpca.cache import CacheInfo, CacheInfoVerbose, ExecutableCache
-from repro_torch.fpca.program import FPCAModelProgram, FPCAProgram
+from repro_torch.fpca.program import FPCAModelProgram, FPCAProgram, _as_tensor
 from repro_torch.kernels.fpca_conv.ops import StickyBucket
+from repro_torch.models.heads import Detections
+from repro_torch.training.tree import tree_map
 
 __all__ = ["FrontendStats", "CompiledFrontend", "CompiledModel", "compile"]
 
@@ -76,6 +78,15 @@ def _host_bool(x: Any) -> np.ndarray:
     return np.array(x, dtype=bool)
 
 
+def _patch(device: torch.device, counts: Any, prev_eff: Any, window_keep: Any) -> torch.Tensor:
+    """The effective activation map: kept windows from ``counts``, the rest
+    from ``prev_eff``."""
+    keep = _as_tensor(window_keep, torch.bool, device)
+    return torch.where(
+        keep[..., None], _as_tensor(counts, torch.float32, device), _as_tensor(prev_eff, torch.float32, device)
+    )
+
+
 class CompiledFrontend:
     """An explicitly-held FPCA executable: one program, one backend, one
     device, weights swappable without building anything.  Construct via
@@ -116,6 +127,10 @@ class CompiledFrontend:
         return int(self.program.out_channels)
 
     @property
+    def out_shape(self) -> tuple[int, int, int]:
+        return self.program.out_shape
+
+    @property
     def kernel(self) -> torch.Tensor | None:
         """Currently programmed NVM weights (None until :meth:`reprogram`)."""
         return self._kernel
@@ -131,6 +146,10 @@ class CompiledFrontend:
         """Executable-cache counters; ``misses`` counts executables built and
         must not move across :meth:`reprogram`."""
         return self._cache.info(verbose=verbose)
+
+    def reset_bucket_state(self) -> None:
+        """Forget sticky row-bucket state (counters in ``stats`` remain)."""
+        self._sticky.clear()
 
     # -- programming ---------------------------------------------------------
     def reprogram(self, kernel: Any, bn_offset: Any | None = None) -> "CompiledFrontend":
@@ -270,16 +289,28 @@ class CompiledFrontend:
             )
         return self._kernel
 
+    def _frontend_transfer(self) -> str:
+        """The bucket transfer the frontend executables serve: "int8" for a
+        ``precision="int8"`` model program on a ``quant_transfer`` backend
+        (so the frontend stage alone counts what the whole-model executable
+        counts), "f32" everywhere else."""
+        mp = getattr(self, "model_program", None)
+        if mp is not None and mp.precision == "int8" and self.backend.quant_transfer:
+            return "int8"
+        return "f32"
+
     def _executable(self, m_bucket: int | None) -> Callable:
         # the dense oracle serves every bucket size with one executable
         if m_bucket is not None and not self.backend.bucket_sensitive:
             m_bucket = -1
-        key = self._sig + (self.backend.name, m_bucket, str(self.device))
+        transfer = self._frontend_transfer()
+        key = self._sig + (self.backend.name, m_bucket, transfer, str(self.device))
 
         def build() -> Callable:
+            kw = {"transfer": transfer} if transfer != "f32" else {}
             return self.backend.make_executable(
                 self.model, spec=self.spec, adc=self.program.adc, enc=self.program.enc,
-                m_bucket=m_bucket, device=self.device,
+                m_bucket=m_bucket, device=self.device, **kw,
             )
 
         return self._cache.get(key, build)
@@ -299,9 +330,10 @@ class CompiledFrontend:
 class CompiledModel(CompiledFrontend):
     """An explicitly-held model executable: analog frontend + digital head.
 
-    :meth:`run` returns class logits from one executable (frontend, then
-    head); :meth:`reprogram` rewrites NVM planes and/or head parameters,
-    neither of which builds anything.
+    :meth:`run` returns class logits (or :class:`Detections` for a
+    detection head) from one executable (frontend, then head);
+    :meth:`reprogram` rewrites NVM planes and/or head parameters, neither
+    of which builds anything.
     """
 
     def __init__(self, model_program: FPCAModelProgram, *, head_params: Any | None = None, **kw: Any):
@@ -310,13 +342,40 @@ class CompiledModel(CompiledFrontend):
         super().__init__(model_program.frontend, **kw)
         self.model_program = model_program
         self._model_sig = model_program.signature()
-        self._head_params: list[dict] | None = None
+        self._head_params: Any | None = None
+        # the zoo's stamp, a label only ("custom" off the registry)
+        self.arch = model_program.arch or "custom"
         if head_params is not None:
             self.reprogram(head_params=head_params)
+
+    # -- introspection -------------------------------------------------------
+    @property
+    def n_classes(self) -> int:
+        return self.model_program.n_classes
+
+    @property
+    def head_out_shape(self) -> tuple[int, ...]:
+        return self.model_program.head_out_shape
+
+    @property
+    def output_kind(self) -> str:
+        return self.model_program.output_kind
+
+    @property
+    def detect_classes(self) -> int | None:
+        return self.model_program.detect_classes
+
+    @property
+    def head_params(self) -> Any | None:
+        """Currently programmed head parameters (None until programmed)."""
+        return self._head_params
 
     def signature(self) -> tuple:
         """The MODEL signature (extends the frontend's)."""
         return self._model_sig
+
+    def frontend_signature(self) -> tuple:
+        return self._sig
 
     def reprogram(
         self,
@@ -339,13 +398,30 @@ class CompiledModel(CompiledFrontend):
                 self.stats.reprograms += 1
         return self
 
-    def _require_head(self) -> list[dict]:
+    def _require_head(self) -> Any:
         if self._head_params is None:
             raise RuntimeError(
                 "no head parameters programmed: call reprogram(head_params=...) first "
                 "(or pass head_params= to compile())"
             )
         return self._head_params
+
+    def run(
+        self,
+        images: Any,
+        *,
+        block_mask: np.ndarray | None = None,
+        window_keep: np.ndarray | None = None,
+    ) -> Any:
+        """Serve one frame or batch through the whole-model executable:
+        logits ``(n_classes,)`` / ``(B, n_classes)``, or
+        :class:`Detections` split from the raw per-cell maps of a detection
+        head."""
+        out = super().run(images, block_mask=block_mask, window_keep=window_keep)
+        dc = self.detect_classes
+        if dc is not None:
+            return Detections.from_raw(out, dc)
+        return out
 
     def run_weighted(
         self,
@@ -354,9 +430,10 @@ class CompiledModel(CompiledFrontend):
         images: Any,
         window_keep: np.ndarray | None = None,
         *,
-        head_params: list[dict] | None = None,
+        head_params: Any | None = None,
     ) -> torch.Tensor:
-        """One frontend+head call -> ``(b, n_classes)`` logits.  An
+        """One frontend+head call -> ``(b,) + head_out_shape`` raw outputs
+        (logits, or per-cell detection maps that :meth:`run` splits).  An
         all-skipped batch launches no kernel and serves the head on the
         exact-zero activation map."""
         hp = self._require_head() if head_params is None else head_params
@@ -380,11 +457,48 @@ class CompiledModel(CompiledFrontend):
         keyed by the frontend signature, shared with frontend handles."""
         return self._dispatch_weighted(kernel, bn_offset, images, window_keep)
 
-    def head_logits(self, counts: Any, head_params: list[dict] | None = None) -> torch.Tensor:
+    def head_logits(self, counts: Any, head_params: Any | None = None) -> torch.Tensor:
         """Digital head on an explicit activation map."""
         hp = self._require_head() if head_params is None else head_params
         counts = torch.as_tensor(counts, dtype=torch.float32, device=self.device)
         return self.model_program.apply_head(hp, counts)
+
+    def patched_logits(
+        self,
+        counts: Any,
+        prev_eff: Any,
+        window_keep: Any,
+        head_params: Any | None = None,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Skip-aware head step: patch the kept windows of ``counts`` into
+        ``prev_eff`` and run the head on the patched map.  Returns
+        ``(logits, effective)``; callers carry ``effective`` forward as the
+        next tick's ``prev_eff``."""
+        hp = self._require_head() if head_params is None else head_params
+        eff = _patch(self.device, counts, prev_eff, window_keep)
+        return self.model_program.apply_head(hp, eff), eff
+
+    def fused_patched_logits(
+        self,
+        head_params_rows: Any,
+        counts: Any,
+        prev_eff: Any,
+        window_keep: Any,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Shared-head fusion: one patch+head pass over stacked rows, each
+        row binding its own head parameters (``head_params_rows`` is the
+        per-row stack, leading axis == ``counts.shape[0]``).
+
+        Row for row bit-identical to :meth:`patched_logits` on that row:
+        each row runs the head at batch 1, as a per-row call does (a
+        batched conv or GEMM may sum in another order)."""
+        eff = _patch(self.device, counts, prev_eff, window_keep)
+        head = self.model_program.apply_head
+        rows = [
+            head(tree_map(lambda a, i=i: a[i], head_params_rows), eff[i : i + 1])[0]
+            for i in range(eff.shape[0])
+        ]
+        return torch.stack(rows), eff
 
     def _model_executable(self, m_bucket: int | None) -> Callable:
         if m_bucket is not None and not self.backend.bucket_sensitive:

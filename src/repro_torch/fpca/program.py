@@ -15,6 +15,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -34,6 +35,7 @@ __all__ = [
     "DenseSpec",
     "ActivationSpec",
     "FPCAModelProgram",
+    "ProgrammedModel",
 ]
 
 _SIG_VERSION = "repro.fpca/1"
@@ -158,6 +160,9 @@ class FPCAProgram:
             object.__setattr__(self, "_signature", sig)
         return sig
 
+    def replace(self, **kw: Any) -> "FPCAProgram":
+        return dataclasses.replace(self, **kw)
+
 
 @dataclasses.dataclass(frozen=True)
 class ProgrammedConfig:
@@ -182,7 +187,7 @@ class ProgrammedConfig:
 
 
 # ---------------------------------------------------------------------------
-# Multi-layer model programs: analog frontend + digital CNN head
+# Multi-layer model programs: analog frontend + digital head
 # ---------------------------------------------------------------------------
 
 _ACTIVATIONS = {
@@ -276,40 +281,92 @@ class ActivationSpec:
 _LAYER_SPECS = (ConvSpec, PoolSpec, DenseSpec, ActivationSpec)
 
 
+
+
+def _as_tensor(v: Any, dtype: torch.dtype, device) -> torch.Tensor:
+    """``torch.as_tensor`` that copies a read-only numpy array first."""
+    if isinstance(v, np.ndarray) and not v.flags.writeable:
+        v = v.copy()
+    return torch.as_tensor(v, dtype=dtype, device=device)
+
+
+def _as_f32_stage(p: Any, device) -> dict[str, torch.Tensor]:
+    """One stage's parameters as float32 tensors on ``device`` (their own
+    when None), keys sorted as the reference's tree map leaves them."""
+    return {k: _as_tensor(v, torch.float32, device) for k, v in sorted(dict(p).items())}
+
+
+def _dense_in(shape: tuple[int, ...]) -> int:
+    d_in = 1
+    for d in shape:
+        d_in *= int(d)
+    return d_in
+
+
+def _evaluate_chain(head: tuple, x: torch.Tensor, *, conv, linear, params: list, on_stage=None) -> torch.Tensor:
+    """Run a chain head on ``x``.  ``conv(p, x, stride, padding)`` and
+    ``linear(p, x)`` lower the parameterized stages (f32 or int8);
+    ``on_stage(i, x)``, when given, sees each parameterized stage's input
+    before it runs (calibration)."""
+    from repro_torch.models.layers import avg_pool2d, max_pool2d
+
+    for i, (layer, p) in enumerate(zip(head, params)):
+        if isinstance(layer, ConvSpec):
+            if on_stage is not None:
+                on_stage(i, x)
+            x = _apply_activation(layer.activation, conv(p, x, layer.stride, layer.padding))
+        elif isinstance(layer, PoolSpec):
+            pool = max_pool2d if layer.kind == "max" else avg_pool2d
+            x = pool(x, layer.size, layer.stride)
+        elif isinstance(layer, DenseSpec):
+            if x.ndim > 2:
+                x = x.reshape(x.shape[0], -1)
+            if on_stage is not None:
+                on_stage(i, x)
+            x = _apply_activation(layer.activation, linear(p, x))
+        else:
+            x = _apply_activation(layer.fn, x)
+    return x
+
+
 @dataclasses.dataclass(frozen=True)
 class FPCAModelProgram:
-    """One validated multi-layer model: FPCA frontend + digital CNN head.
+    """One validated multi-layer model: FPCA frontend + digital head.
 
     * ``frontend``    — the analog first layer (:class:`FPCAProgram`);
-    * ``head``        — the digital stages applied to the SS-ADC counts, in
-      order; the last must be a :class:`DenseSpec` (the class logits);
+    * ``head``        — the digital stages applied to the SS-ADC counts: a
+      chain of layer specs whose last is a :class:`DenseSpec` (the class
+      logits), or a :class:`repro_torch.models.heads.HeadGraph` (residual,
+      multi-branch and detection heads of :mod:`repro_torch.fpca.zoo`);
     * ``input_scale`` — counts -> activation-unit scale applied before the
-      head (compiled in, hence in the signature).
-
-    Graph heads (``HeadGraph``) and ``precision="int8"`` are ported in later
-    slices and raise ``NotImplementedError`` here.
+      head (compiled in, hence in the signature);
+    * ``arch``        — the zoo name the program was built under; a label
+      only, excluded from :meth:`signature`;
+    * ``precision``   — ``"f32"`` or ``"int8"`` (per-channel symmetric int8
+      weights, calibrated int8 activations, int32 accumulation,
+      :mod:`repro_torch.models.quant`).  In the signature only off the f32
+      default; the quantised parameters, scales included, are call
+      arguments, so reprogramming them builds nothing.
     """
 
     frontend: FPCAProgram
     head: Any
     input_scale: float = 1.0
+    arch: str | None = None
     precision: str = "f32"
 
     def __post_init__(self) -> None:
         if not isinstance(self.frontend, FPCAProgram):
             raise TypeError("frontend must be an FPCAProgram")
-        if self.precision == "int8":
-            raise NotImplementedError(
-                "precision='int8' (models/quant.py) is ported in the int8-serving "
-                "slice of the port; only 'f32' runs here"
-            )
-        if self.precision != "f32":
+        if self.precision not in ("f32", "int8"):
             raise ValueError(f"unknown precision {self.precision!r}; available: ('f32', 'int8')")
-        if not isinstance(self.head, (tuple, list)):
-            raise NotImplementedError(
-                "graph heads (HeadGraph, fpca.zoo) are ported in the model-zoo slice "
-                "of the port; pass a chain of layer specs"
-            )
+        from repro_torch.models.heads import HeadGraph
+
+        if isinstance(self.head, HeadGraph):
+            if not float(self.input_scale) > 0.0:
+                raise ValueError("input_scale must be > 0")
+            self.head.shapes(self.frontend.out_shape)   # validates node geometry
+            return
         object.__setattr__(self, "head", tuple(self.head))
         if not self.head:
             raise ValueError("model head needs at least one layer spec")
@@ -322,8 +379,20 @@ class FPCAModelProgram:
             raise ValueError("input_scale must be > 0")
         self.head_shapes()   # validates the layer geometry chains
 
+    # -- derived geometry ----------------------------------------------------
+    @property
+    def is_graph_head(self) -> bool:
+        from repro_torch.models.heads import HeadGraph
+
+        return isinstance(self.head, HeadGraph)
+
     def head_shapes(self) -> list[tuple[int, ...]]:
         """Output shape after each head stage (index 0 = frontend output)."""
+        if self.is_graph_head:
+            raise TypeError(
+                "head_shapes() is for chain heads; a HeadGraph head exposes per-node shapes via "
+                "model.head.shapes(model.frontend.out_shape)"
+            )
         shapes: list[tuple[int, ...]] = [self.frontend.out_shape]
         for i, layer in enumerate(self.head):
             cur = shapes[-1]
@@ -354,7 +423,27 @@ class FPCAModelProgram:
 
     @property
     def n_classes(self) -> int:
+        if self.is_graph_head:
+            return int(self.head.n_classes)
         return int(self.head[-1].features)
+
+    @property
+    def head_out_shape(self) -> tuple[int, ...]:
+        """Per-example head output: ``(n_classes,)`` for classifiers, the
+        graph's output shape (``(gh, gw, C + 4)`` for detection) otherwise."""
+        if self.is_graph_head:
+            return tuple(self.head.out_shape(self.frontend.out_shape))
+        return (self.n_classes,)
+
+    @property
+    def output_kind(self) -> str:
+        """``"logits"`` (classifier) or ``"detections"`` (per-cell maps)."""
+        return self.head.output_kind if self.is_graph_head else "logits"
+
+    @property
+    def detect_classes(self) -> int | None:
+        """Class count of a detection head (``None`` for classifiers)."""
+        return self.n_classes if self.output_kind == "detections" else None
 
     @property
     def spec(self) -> FPCASpec:
@@ -364,7 +453,9 @@ class FPCAModelProgram:
     def out_channels(self) -> int:
         return int(self.frontend.out_channels)
 
+    # -- parameters ----------------------------------------------------------
     def _param_shapes(self) -> list[dict[str, tuple[int, ...]]]:
+        """Per chain stage, its parameter shapes (``{}`` when it has none)."""
         shapes = self.head_shapes()
         out = []
         for i, layer in enumerate(self.head):
@@ -373,10 +464,7 @@ class FPCAModelProgram:
                 out.append({"w": (layer.out_channels, layer.kernel, layer.kernel, cur[-1]),
                             "b": (layer.out_channels,)})
             elif isinstance(layer, DenseSpec):
-                d_in = 1
-                for d in cur:
-                    d_in *= int(d)
-                out.append({"w": (d_in, layer.features), "b": (layer.features,)})
+                out.append({"w": (_dense_in(cur), layer.features), "b": (layer.features,)})
             else:
                 out.append({})
         return out
@@ -386,9 +474,12 @@ class FPCAModelProgram:
         generator: torch.Generator | None = None,
         *,
         device: str | torch.device | None = None,
-    ) -> list[dict]:
-        """Fresh head parameters: one dict per stage (``{}`` for
-        parameterless stages), drawn from the CPU ``generator``."""
+    ) -> Any:
+        """Fresh f32 head parameters drawn from the CPU ``generator``: one
+        dict per chain stage (``{}`` for parameterless stages), or a dict
+        keyed by node name for a graph head."""
+        if self.is_graph_head:
+            return self.head.init(generator, self.frontend.out_shape, device=device)
         from repro_torch.models.layers import init_conv2d, init_linear
 
         params: list[dict] = []
@@ -402,14 +493,28 @@ class FPCAModelProgram:
                 params.append({})
         return params
 
-    def bind_head_params(self, params: Any, *, device: str | torch.device | None = None) -> list[dict]:
-        """Validate and coerce head parameters (tensors or numpy arrays) to
-        float32 tensors on ``device`` (their own device when None), so a
-        stage-count or shape mismatch fails at the call site."""
-        bound = [
-            {k: torch.as_tensor(v, dtype=torch.float32, device=device) for k, v in dict(p).items()}
-            for p in params
-        ]
+    def bind_head_params(self, params: Any, *, device: str | torch.device | None = None) -> Any:
+        """Validate and coerce head parameters (tensors or numpy arrays) onto
+        ``device`` (their own device when None), so a stage-count or shape
+        mismatch fails at the call site.
+
+        With ``precision="int8"`` an already-quantised tree (``w_q`` leaves)
+        is validated and bound as it is; an f32 tree is quantised on the
+        spot with the data-free full-scale calibration
+        (:func:`repro_torch.models.quant.quantize_head_params`)."""
+        if self.precision == "int8":
+            from repro_torch.models import quant
+
+            if quant.is_quantized_params(params):
+                return quant.bind_quant_head_params(self, params, device=device)
+            return quant.quantize_head_params(self, params, device=device)
+        return self._bind_f32(params, device=device)
+
+    def _bind_f32(self, params: Any, *, device: str | torch.device | None = None) -> Any:
+        """The f32 binding path (also the pre-quantisation validator)."""
+        if self.is_graph_head:
+            return self.head.bind(params, self.frontend.out_shape, device=device)
+        bound = [_as_f32_stage(p, device) for p in params]
         if len(bound) != len(self.head):
             raise ValueError(
                 f"head has {len(self.head)} stages but got {len(bound)} parameter entries"
@@ -423,40 +528,78 @@ class FPCAModelProgram:
                 )
         return bound
 
-    def apply_head(self, params: list[dict], counts: torch.Tensor) -> torch.Tensor:
-        """The head: SS-ADC counts ``(b, h_o, w_o, c_o)`` -> logits
-        ``(b, n_classes)``, through :mod:`repro_torch.models.layers`."""
-        from repro_torch.models.layers import avg_pool2d, conv2d, linear, max_pool2d
+    def apply_head(self, params: Any, counts: torch.Tensor) -> torch.Tensor:
+        """The head: SS-ADC counts ``(b, h_o, w_o, c_o)`` -> ``(b,) +
+        head_out_shape`` (logits, or raw per-cell detection maps), through
+        :mod:`repro_torch.models.layers`.  ``precision="int8"`` lowers it
+        through :func:`repro_torch.models.quant.apply_head_int8` instead."""
+        if self.precision == "int8":
+            from repro_torch.models.quant import apply_head_int8
 
+            return apply_head_int8(self, params, counts)
+        x = counts.float() * float(self.input_scale)
+        if self.is_graph_head:
+            return self.head.apply(params, x)
         if len(params) != len(self.head):
             raise ValueError(
                 f"head has {len(self.head)} stages but got {len(params)} parameter entries"
             )
-        x = counts.float() * float(self.input_scale)
-        for layer, p in zip(self.head, params):
-            if isinstance(layer, ConvSpec):
-                x = _apply_activation(layer.activation, conv2d(p, x, layer.stride, layer.padding))
-            elif isinstance(layer, PoolSpec):
-                pool = max_pool2d if layer.kind == "max" else avg_pool2d
-                x = pool(x, layer.size, layer.stride)
-            elif isinstance(layer, DenseSpec):
-                if x.ndim > 2:
-                    x = x.reshape(x.shape[0], -1)
-                x = _apply_activation(layer.activation, linear(p, x))
-            else:
-                x = _apply_activation(layer.fn, x)
-        return x
+        from repro_torch.models.layers import conv2d, linear
 
+        return _evaluate_chain(self.head, x, conv=conv2d, linear=linear, params=params)
+
+    # -- identity ------------------------------------------------------------
     def signature(self) -> tuple:
         """Stable model compile signature extending the frontend's: head
-        specs and ``input_scale`` are compiled in; parameters are not."""
+        specs, ``input_scale`` and a non-default ``precision`` are compiled
+        in; parameters and ``arch`` are not."""
         sig = self.__dict__.get("_signature")
         if sig is None:
-            head_sig = ("head",) + tuple(layer._sig() for layer in self.head)
+            if self.is_graph_head:
+                head_sig = ("head_graph",) + self.head._sig_entries()
+            else:
+                head_sig = ("head",) + tuple(layer._sig() for layer in self.head)
             sig = (
                 (_MODEL_SIG_VERSION,)
                 + self.frontend.signature()
                 + (head_sig, ("input_scale", float(self.input_scale)))
             )
+            if self.precision != "f32":
+                # appended only off the f32 default, so every f32 signature
+                # stays byte-equal to the reference's
+                sig = sig + (("precision", self.precision),)
             object.__setattr__(self, "_signature", sig)
         return sig
+
+    def replace(self, **kw: Any) -> "FPCAModelProgram":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ProgrammedModel:
+    """A model program bound to its trained parameters: NVM planes for the
+    analog frontend plus the head parameters, the way
+    :class:`ProgrammedConfig` binds a frontend program to NVM weights.
+    ``program`` is the frontend program."""
+
+    name: str
+    model: FPCAModelProgram
+    kernel: torch.Tensor            # (c_o, k, k, c_i) float NVM weights
+    bn_offset: torch.Tensor         # (c_o,) counts
+    head_params: Any                # a tree matching model.init_head()
+
+    @property
+    def program(self) -> FPCAProgram:
+        return self.model.frontend
+
+    @property
+    def spec(self) -> FPCASpec:
+        return self.model.frontend.spec
+
+    @property
+    def out_channels(self) -> int:
+        return int(self.model.frontend.out_channels)
+
+    @property
+    def out_shape(self) -> tuple[int, int, int]:
+        return self.model.frontend.out_shape

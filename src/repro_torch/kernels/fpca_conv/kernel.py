@@ -192,16 +192,19 @@ def fpca_conv_basis(
     bn_offset: torch.Tensor,
     *,
     row_valid: torch.Tensor | None = None,
+    lut: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The kernel's math in plain PyTorch: counts ``(M, C)``, float32 and
     integer-valued.  ``row_valid (M,)`` marks the real rows of a region-skip
-    compacted bucket; rows with 0 come out as exact zeros."""
+    compacted bucket; rows with 0 come out as exact zeros.  ``lut``, the
+    ``(256, 1 + 10)`` table of :func:`repro_torch.kernels.fpca_conv.ops.
+    _transfer_lut`, selects the int8 transfer (see :func:`basis_epilogue`)."""
     x = patches.float()
     xp = {1: x, 2: x * x, 3: x * x * x}
     maskv = tables.mask[:, None]
     rv = {a: xp[a] @ maskv for a in (1, 2, 3)}                 # (M, 1) each
     mm = [{(a, b): xp[a] @ planes["w_pows"][p, b - 1] for (a, b) in _MM_PAIRS} for p in (0, 1)]
-    return basis_epilogue(rv, mm, planes, tables, bn_offset, row_valid=row_valid)
+    return basis_epilogue(rv, mm, planes, tables, bn_offset, row_valid=row_valid, lut=lut)
 
 
 def basis_epilogue(
@@ -212,10 +215,15 @@ def basis_epilogue(
     bn_offset: torch.Tensor,
     *,
     row_valid: torch.Tensor | None = None,
+    lut: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Counts from the window sums ``rv[a] (M, 1)`` (a = 1..3) and each
     phase's dot products ``mm[p][(a, b)] (M, C)``: the f_avg estimate, the
-    gate bank and the SS-ADC readout of :func:`fpca_conv_basis`."""
+    gate bank and the SS-ADC readout of :func:`fpca_conv_basis`.
+
+    With ``lut`` the gate bank is the int8 transfer: the gate input ``xg``
+    requantises to 256 levels and one gather from the table gives the
+    effective constant and pair coefficients, in :data:`_PAIRS` order."""
     model = tables.model
     mean_i = rv[1] / tables.n_real
     a_i = torch.cat([_ipow(mean_i, int(a)) for a, _ in model.f_avg.exps], dim=1)
@@ -226,6 +234,15 @@ def basis_epilogue(
     def one_phase(p: int) -> torch.Tensor:
         cs = planes["cs"][p]
         xg = (a_i @ planes["aw"][p]) / model.v_range           # (M, C)
+        if lut is not None:
+            levels = lut.shape[0]
+            xg_q = torch.floor(xg * levels).clamp(0, levels - 1).long()
+            g = lut[xg_q]                                      # (M, C, 1 + pairs)
+            v_pred = g[..., 0]
+            for j, (a, b) in enumerate(_PAIRS):
+                term = cs[b][None, :] if a == 0 else rv[a] if b == 0 else mm[p][(a, b)]
+                v_pred = v_pred + g[..., j + 1] * term
+            return v_pred
         v_pred = torch.zeros_like(xg)
         for i in range(nb):
             lo, hi = float(edges[i]), float(edges[i] + 1.0 / nb)

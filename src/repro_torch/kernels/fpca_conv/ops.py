@@ -14,6 +14,10 @@ kept windows are bit-identical to the dense evaluation because every row of
 the basis-bank math is row-independent.  When the bucket would not shrink
 the matrix (``m_bucket >= M``) the dense fallback runs with a post-hoc zero
 mask instead.
+
+``transfer="int8"`` (``precision="int8"`` model programs on the ``basis``
+backend) replaces the sigmoid gate bank by one gather from a 256-entry
+coefficient table (:func:`_transfer_lut`); only ``impl="basis"`` lowers it.
 """
 
 from __future__ import annotations
@@ -49,6 +53,46 @@ __all__ = [
 
 _LANES = 128
 _IMPLS = {"cuda": fpca_conv_cuda, "basis": fpca_conv_basis}
+
+# int8 transfer: the bucket-sigmoid gate bank collapses into a LUT over the
+# 8-bit requantised gate input (256 levels, the SS-ADC's own resolution).
+_TRANSFER_LEVELS = 256
+
+
+def _stable_sigmoid(z: np.ndarray) -> np.ndarray:
+    out = np.empty_like(z)
+    pos = z >= 0
+    out[pos] = 1.0 / (1.0 + np.exp(-z[pos]))
+    ez = np.exp(z[~pos])
+    out[~pos] = ez / (1.0 + ez)
+    return out
+
+
+def _transfer_lut(tables: ConvTables) -> np.ndarray:
+    """The bucket-sigmoid transfer baked into a ``(256, 1 + 10)`` float32
+    coefficient table: column 0 the effective constant, then one column per
+    monomial pair in the kernel's pair order.
+
+    Per element the f32 path sums ``gate_i(xg) * (const_i + sum_p c_i[p] *
+    term_p)`` over the buckets; swapping the sums leaves coefficients that
+    depend on ``xg`` alone, evaluated here at the 256 level centres in
+    float64 (the reference's table, bit for bit, from the same constants)."""
+    model = tables.model
+    T = _TRANSFER_LEVELS
+    grid = (np.arange(T, dtype=np.float64) + 0.5) / T
+    edges = np.arange(model.n_buckets, dtype=np.float64) / model.n_buckets
+    gates = np.stack(
+        [
+            _stable_sigmoid(model.sharpness * (grid - edges[i]))
+            + _stable_sigmoid(model.sharpness * (edges[i] + 1.0 / model.n_buckets - grid))
+            - 1.0
+            for i in range(model.n_buckets)
+        ],
+        axis=1,
+    )                                               # (T, n_buckets)
+    cols = [gates @ np.asarray(tables.const, np.float64)]
+    cols += [gates @ np.asarray(tables.by_pair[p], np.float64) for p in tables.by_pair]
+    return np.stack(cols, axis=1).astype(np.float32)
 
 
 def window_bucket(n_keep: int, m_total: int) -> int:
@@ -163,6 +207,7 @@ def _fpca_conv_impl(
     enc: WeightEncoding,
     impl: str,
     m_bucket: int | None = None,
+    lut: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Encode, extract, compact kept windows, run the kernel, scatter back."""
     w_pos, w_neg = encode_weights(kernel, spec, enc)              # (c_o, N)
@@ -186,7 +231,8 @@ def _fpca_conv_impl(
             row_valid = (torch.arange(m_bucket, device=flat.device) < n_keep).float()
             flat = flat[idx]
 
-    counts = _IMPLS[impl](flat, planes, tables, bn_offset.float().contiguous(), row_valid=row_valid)
+    kw = {} if lut is None else {"lut": lut}
+    counts = _IMPLS[impl](flat, planes, tables, bn_offset.float().contiguous(), row_valid=row_valid, **kw)
     if keep is not None:
         if idx is not None:
             # scatter-add back: padding rows are exact zeros, so the
@@ -206,6 +252,7 @@ def make_fpca_conv_executable(
     impl: str = "cuda",
     m_bucket: int | None = None,
     device: str | torch.device | None = None,
+    transfer: str = "f32",
 ) -> Callable:
     """An ``(images, kernel, bn_offset) -> counts`` executable for ``device``
     (the card by default).  Its constant tables are built once, here.
@@ -214,19 +261,29 @@ def make_fpca_conv_executable(
     window_mask)`` and serves the region-skip compacted path.  CONTRACT:
     every mask fed to it keeps at most ``m_bucket`` windows — the gather is
     fixed-size and a busier mask would drop kept windows.
+
+    ``transfer="int8"`` serves the quantised bucket transfer
+    (:func:`_transfer_lut`); only ``impl="basis"`` lowers it, any other
+    impl raises here.
     """
     adc = adc or ADCConfig()
     enc = enc or WeightEncoding()
     if impl not in _IMPLS:
         raise ValueError(f"unknown impl {impl!r}; available: {tuple(_IMPLS)}")
-    tables = conv_tables(model, adc, spec.n_active_pixels, resolve_device(device))
+    if transfer not in ("f32", "int8"):
+        raise ValueError(f"unknown transfer {transfer!r}")
+    if transfer != "f32" and impl != "basis":
+        raise ValueError(f"transfer={transfer!r} is only lowered by the basis impl (got impl={impl!r})")
+    dev = resolve_device(device)
+    tables = conv_tables(model, adc, spec.n_active_pixels, dev)
+    lut = torch.as_tensor(_transfer_lut(tables), device=dev) if transfer == "int8" else None
 
     def run(images, kernel, bn_offset, window_mask=None):
         if (window_mask is None) != (m_bucket is None):
             raise ValueError("pass window_mask exactly when the executable has an m_bucket")
         return _fpca_conv_impl(
             images, kernel, bn_offset, window_mask,
-            tables=tables, spec=spec, enc=enc, impl=impl, m_bucket=m_bucket,
+            tables=tables, spec=spec, enc=enc, impl=impl, m_bucket=m_bucket, lut=lut,
         )
 
     return run

@@ -113,9 +113,9 @@ def test_program_validation_and_later_slices():
         fpca.DenseSpec(4, activation="softmax3")
     with pytest.raises(ValueError, match="input_scale"):
         fpca.FPCAModelProgram(frontend=fe, head=(fpca.DenseSpec(2),), input_scale=0.0)
-    with pytest.raises(NotImplementedError, match="int8"):
-        fpca.FPCAModelProgram(frontend=fe, head=(fpca.DenseSpec(2),), precision="int8")
-    with pytest.raises(NotImplementedError, match="HeadGraph"):
+    with pytest.raises(ValueError, match="unknown precision 'fp4'"):
+        fpca.FPCAModelProgram(frontend=fe, head=(fpca.DenseSpec(2),), precision="fp4")
+    with pytest.raises(TypeError, match="not iterable"):
         fpca.FPCAModelProgram(frontend=fe, head=object())
     with pytest.raises(ValueError, match="target"):
         fpca.GateControllerConfig(target=0.0)

@@ -27,6 +27,10 @@ Tolerances, each kernel against its plain PyTorch version on the card:
   (both sides compute in f32 and round each gradient once).
 - the dense smoke training step, card vs host (f32): loss within 1e-5,
   every gradient leaf within 1e-4 of its max|want|.
+- the int8 head's accumulators (``quant_bank_dot``, ``conv2d_int8_acc``):
+  equal to the host's bit for bit (integer sums below 2**24 are exact in
+  f32 in any order); ``fused_patched_logits`` equal to ``patched_logits``
+  row by row.
 """
 
 from __future__ import annotations
@@ -59,7 +63,7 @@ from repro_torch.kernels.fpca_conv.kernel import design as fpca_design
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_cuda
 from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref
-from repro_torch.models import ssm
+from repro_torch.models import quant, ssm
 from repro_torch.models.attention import FlashAttention, attend_blockwise
 from repro_torch.models.transformer import forward_decode, forward_prefill, forward_train, init_model
 from repro_torch.training.tree import tree_leaves
@@ -175,6 +179,77 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda, model):
         fpca_conv_cuda(torch.rand(75, 64, device=cuda).T, planes, tables, bn)
     with pytest.raises(ValueError, match="pixel slots"):
         fpca_conv_cuda(patches[:, :50].contiguous(), planes, tables, bn)
+
+
+@pytest.mark.parametrize("arch", ["fpca_resnet", "fpca_detect"])
+def test_zoo_models_launch_the_tensor_core_kernel_and_match_basis(cuda, model, arch):
+    """The zoo's archs at their defaults (120x120x3 frames, 8 channels):
+    every launch on the tensor-core design, counts within the fpca limit of
+    ``basis`` on the card, ``run`` equal to head(frontend) bit for bit."""
+    prog = fpca.build_model({"arch": arch})
+    g = torch.Generator().manual_seed(2)
+    kernel = torch.randn(prog.frontend.kernel_shape, generator=g) * 0.3
+    head = prog.init_head(g, device=cuda)
+    frames = torch.rand((3, 120, 120, 3), generator=g).to(cuda)
+    m = fpca.compile(prog, weights=kernel, head_params=head, model=model)
+    b = fpca.compile(prog, backend="basis", device=cuda, weights=kernel, head_params=head, model=model)
+    before, wgmma = fpca_conv_cuda.launches, fpca_conv_cuda.designs["wgmma"]
+    out = m.run(frames)
+    counts = m.run_frontend_weighted(m.kernel, m.bn_offset, frames)
+    assert fpca_conv_cuda.launches == before + 2 and fpca_conv_cuda.designs["wgmma"] == wgmma + 2
+    raw = m.head_logits(counts)
+    if arch == "fpca_detect":
+        assert isinstance(out, fpca.Detections) and tuple(out.scores.shape) == (3, 24, 24, 2)
+        assert tuple(out.boxes.shape) == (3, 24, 24, 4)
+        out = torch.cat([out.scores, out.boxes], -1)
+    else:
+        assert tuple(out.shape) == (3, 2)
+    assert torch.equal(out, raw) and bool(torch.isfinite(raw).all())
+    want = b.run_frontend_weighted(b.kernel, b.bn_offset, frames)
+    diff = (counts - want).abs()
+    assert float(diff.max()) <= 1.0 and float((diff > 0).float().mean()) < 0.05
+
+
+@pytest.mark.parametrize("m,k,n", [(2, 64, 5), (3, 1500, 7), (256, 4608, 64)])
+def test_quant_bank_dot_on_the_card_equals_the_host(cuda, m, k, n):
+    """K = 4608 is the int8 fpca_cnn dense stage (24 x 24 x 8 counts)."""
+    g = torch.Generator().manual_seed(k)
+    x_q = torch.randint(-127, 128, (m, k), generator=g).float()
+    w_q = torch.randint(-127, 128, (k, n), generator=g).to(torch.int8)
+    want = quant.quant_bank_dot(x_q, w_q)
+    got = quant.quant_bank_dot(x_q.to(cuda), w_q.to(cuda))
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+    assert torch.equal(want.long(), x_q.long() @ w_q.long())
+
+
+@pytest.mark.parametrize("c_in,stride,padding", [(16, 1, "SAME"), (8, 1, "SAME"), (130, 2, "VALID")])
+def test_conv2d_int8_on_the_card_equals_the_host(cuda, c_in, stride, padding):
+    """3x3 SAME over 16 channels is the fpca_resnet residual branch; 130
+    channels take the chunked reduction (1170 terms)."""
+    g = torch.Generator().manual_seed(c_in)
+    x = torch.randn((4, 24, 24, c_in), generator=g) * 3
+    qp = {"w_q": torch.randint(-127, 128, (16, 3, 3, c_in), generator=g).to(torch.int8),
+          "w_scale": torch.rand(16, generator=g) * 0.01, "b": torch.randn(16, generator=g),
+          "x_scale": x.abs().max() / 127.0}
+    want = quant.conv2d_int8_acc(qp, x, stride, padding)
+    got = quant.conv2d_int8_acc({k: v.to(cuda) for k, v in qp.items()}, x.to(cuda), stride, padding)
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+
+
+def test_fused_patched_logits_rows_equal_patched_logits_on_the_card(cuda, model):
+    prog = fpca.build_model({"arch": "fpca_resnet"})
+    g = torch.Generator().manual_seed(4)
+    heads = [prog.bind_head_params(prog.init_head(g, device=cuda)) for _ in range(3)]
+    m = fpca.compile(prog, weights=torch.randn(prog.frontend.kernel_shape, generator=g) * 0.3,
+                     head_params=heads[0], model=model)
+    counts = torch.randint(0, 256, (3, 24, 24, 8), generator=g).float().to(cuda)
+    prev = torch.randint(0, 256, (3, 24, 24, 8), generator=g).float().to(cuda)
+    keep = (torch.rand((3, 24, 24), generator=g) < 0.3).to(cuda)
+    stacked = {n: {k: torch.stack([h[n][k] for h in heads]) for k in heads[0][n]} for n in heads[0]}
+    fused, eff = m.fused_patched_logits(stacked, counts, prev, keep)
+    for i, h in enumerate(heads):
+        want, want_eff = m.patched_logits(counts[i:i + 1], prev[i:i + 1], keep[i:i + 1], h)
+        assert torch.equal(fused[i], want[0]) and torch.equal(eff[i], want_eff[0])
 
 
 def test_compiled_model_launches_the_kernel_and_matches_basis(cuda, model):
