@@ -36,6 +36,20 @@ then, through the same kernel, the model zoo and int8 head serving:
    every quantised stage's int32 accumulators on the card against the
    host's on the same inputs, bit for bit, and the int8 logits against the
    host's int8 head; prints the int8-vs-f32 parity;
+7c. streams the moving-object video (120x120x3, seed 0, speed 0.17) through
+   fpca_cnn and fpca_detect at full width under the default gate (threshold
+   0.02, hysteresis 1, keyframe every 30): 128 ticks per tick through
+   ``stream()`` (launches counted by the wrapper) and as four chained
+   ``run_segment`` calls of 32 ticks, each replayed as one CUDA graph whose
+   fpca launches (one per tick, all on the tensor-core design) are counted
+   from the profiler; checks segments == ``stream()`` bit for bit (counts,
+   masks, logits or detections), an early-exit segment on a static scene
+   stopping where the per-tick loop goes quiet, a dense segment, the basis
+   backend's segments within the fpca limit, and a reprogram and threshold
+   changes between segments that capture nothing; prints per-tick times of
+   both routes, capture time, a replay's device time and busy share, the
+   rows the kernel walked beside ``rows_executed``, and the kernel's time at
+   M = 576 with device row counts 576, 58 and 0;
 
 then the language-model serving path (``repro_torch.launch.serve``):
 
@@ -113,7 +127,7 @@ from repro_torch.kernels.fpca_conv.kernel import (  # noqa: E402
     weight_planes,
 )
 from repro_torch.configs import ARCHS, reduce_for_smoke  # noqa: E402
-from repro_torch.data.pipeline import LMStreamConfig, SyntheticLM  # noqa: E402
+from repro_torch.data.pipeline import LMStreamConfig, SyntheticLM, SyntheticMovingObject  # noqa: E402
 from repro_torch.kernels.flash_attention import bwd as flash_bwd  # noqa: E402
 from repro_torch.kernels.flash_attention.bwd import (  # noqa: E402
     flash_attention_dkdv_cuda,
@@ -160,6 +174,13 @@ FPCA_FLOP_PER_EDGE, FPCA_FLOP_PER_BUCKET, FPCA_MUFU_PER_EDGE, FPCA_MUFU_EXTRA = 
 COUNT_TOL, FLIP_TOL = 1.0, 0.05   # <= 1 ADC count, < 5% of counts off
 # the zoo's graph-head archs, and the archs served with an int8 head
 ZOO_ARCHS, INT8_ARCHS = ("fpca_resnet", "fpca_detect"), ("fpca_cnn", "fpca_resnet")
+# streaming: four chained segments of K = 32 ticks over the moving-object
+# video, then K static frames (the early-exit segment, patience 4), for
+# fpca_cnn and fpca_detect under the program's default gate
+STREAM_ARCHS, STREAM_K, STREAM_SEGMENTS, STREAM_EARLY_EXIT = ("fpca_cnn", "fpca_detect"), 32, 4, 4
+# the fpca kernel's rows at M = 576 (a batch-1 tick), timed with these
+# device row counts: all, a tick keeping ~10%, none
+STREAM_N_ROWS = (576, 58, 0)
 # int8 logits card vs host from the same counts and quantised parameters,
 # as a share of max|logit|: every stage's int32 accumulators agree exactly;
 # the f32 ops between stages (an avg-pool summed in another order) can move
@@ -328,7 +349,7 @@ def main() -> None:
         check(bool(torch.isfinite(logits).all()), f"{label}: non-finite logits")
 
     launches, designs, latency = serve_requests("fpca_cnn", model, requests, check_out)
-    print(f"fpca_cnn stats {model.stats.snapshot()}")
+    print(f"fpca_cnn stats {model.stats.as_dict()}")
 
     # ---- 6a. kernel vs plain version at the path's full shape ----------------
     w_pos, w_neg = encode_weights(kernel.to(dev), spec, prog.frontend.enc)
@@ -442,8 +463,11 @@ def main() -> None:
     by_path = {"fpca_cnn": launches}
     by_path.update(zoo_phase(dev, smi, bucket_model, requests))
     by_path.update(int8_phase(dev, smi, bucket_model, requests))
+    streaming = stream_phase(dev, smi, bucket_model)
+    by_path.update(streaming.pop("launches"))
     fpca_entry["launches"] = sum(by_path.values())
     fpca_entry["launches_by_path"] = by_path
+    fpca_entry["streaming"] = streaming
     gc.collect()
     torch.cuda.empty_cache()
     flash_entry, ssd_entry = lm_phase(dev, smi)
@@ -462,18 +486,22 @@ def profile_request(model, x: torch.Tensor) -> tuple[float, list[str]]:
     return profile_device(lambda: model.run(x), runs=5)
 
 
-def profile_device(fn, runs: int) -> tuple[float, list[str]]:
-    """Device milliseconds per call of ``fn`` and its split by kernel name
-    (torch.profiler over ``runs`` calls), top 8."""
+def device_events(fn, runs: int) -> list:
+    """The device-side events (kernels, memcpy/memset; not the host ops that
+    launch them) of ``runs`` calls of ``fn`` under torch.profiler, by name."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    # device-side events only (kernels, memcpy/memset), not the host ops that launch them
-    events = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA") and e.device_time_total > 0]
+    return [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA") and e.device_time_total > 0]
+
+
+def profile_device(fn, runs: int) -> tuple[float, list[str]]:
+    """Device milliseconds per call of ``fn`` and its split by kernel name
+    (torch.profiler over ``runs`` calls), top 8."""
+    events = device_events(fn, runs)
     if not events:
         return float("nan"), ["torch.profiler recorded no device time"]
     events.sort(key=lambda e: e.device_time_total, reverse=True)
@@ -686,6 +714,229 @@ def int8_phase(dev: torch.device, smi: str, bucket_model, requests: list) -> dic
         print(f"{label} vs f32 on {smi}, batch 64 (reported only): max divergence {par['max_abs_divergence']:.4f}, "
               f"top-1 agreement {par['top1_agreement']:.4f}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# streaming: per-tick stream() and K-tick segments replayed as CUDA graphs
+# ---------------------------------------------------------------------------
+
+
+def fpca_kernel_launches(events: list) -> dict:
+    """Launches of the fpca kernel's two designs among profiler events."""
+    return {"wgmma": sum(e.count for e in events if "fpca_tc_kernel" in e.key),
+            "simt": sum(e.count for e in events if "fpca_conv_kernel" in e.key)}
+
+
+def _chained(model, frames: np.ndarray, **kw) -> list:
+    """STREAM_SEGMENTS segments of STREAM_K ticks, state (and with it the
+    suggested bucket) threaded from one to the next."""
+    segs, state = [], None
+    for s in range(STREAM_SEGMENTS):
+        seg = model.run_segment(frames[s * STREAM_K:(s + 1) * STREAM_K], state=state, **kw)
+        segs.append(seg)
+        state = seg.state
+    return segs
+
+
+def _same_tick(seg, t: int, r, what: str) -> None:
+    """One segment tick against the per-tick loop's, bit for bit."""
+    check(bool((seg.counts[t].cpu().numpy() == r.counts).all()), f"{what}: counts differ from stream()")
+    check(r.block_mask is None or bool((seg.block_masks[t] == r.block_mask).all()),
+          f"{what}: block mask differs from stream()")
+    check(int(seg.kept_windows[t]) == r.kept_windows, f"{what}: kept windows differ from stream()")
+    if r.detections is not None:
+        det = seg.detections()[t]
+        check(bool((det.scores == r.detections.scores).all() and (det.boxes == r.detections.boxes).all()),
+              f"{what}: detections differ from stream()")
+    elif r.logits is not None:
+        check(bool((seg.logits[t].cpu().numpy() == r.logits).all()), f"{what}: logits differ from stream()")
+
+
+def stream_phase(dev: torch.device, smi: str, bucket_model) -> dict:
+    """Serve the moving-object video (120x120x3, seed SEED, speed 0.17) at
+    full width through fpca_cnn and fpca_detect under the default gate
+    (threshold 0.02, hysteresis 1, keyframe every 30): per tick through
+    ``stream()``, and as four chained ``run_segment`` calls of 32 ticks,
+    each replayed as one CUDA graph.  Checks segments == stream() bit for
+    bit (counts, masks, kept windows, logits or detections), an early-exit
+    segment on a static scene stopping where the per-tick loop goes quiet,
+    and for fpca_cnn a dense segment, the basis backend within the fpca
+    limit, and a reprogram between segments that captures nothing; prints
+    per-tick times, capture time, device time and busy share of a replay,
+    its fpca launches by design, and the kernel's time at M = 576 with the
+    device row counts of STREAM_N_ROWS."""
+    from repro_torch.fpca.backends import _CapturedSegment
+
+    check(not torch.backends.cudnn.benchmark, "cuDNN benchmark mode must be off (it picks algorithms per run)")
+    n = STREAM_K * STREAM_SEGMENTS
+    video = SyntheticMovingObject((120, 120), seed=SEED, speed=0.17)
+    moving = np.stack([video.frame_at(t) for t in range(n)])
+    frames = np.concatenate([moving, np.repeat(moving[-1:], STREAM_K, axis=0)])   # then a static scene
+    out: dict = {"launches": {}, "by_arch": {}}
+    for i, arch in enumerate(STREAM_ARCHS):
+        prog = fpca.build_model({"arch": arch, "frontend": {"gate": fpca.DeltaGateConfig()}})
+        check(prog.spec == fpca_cnn.FRONTEND_SPEC and prog.frontend.gate == fpca.DeltaGateConfig(),
+              f"{arch}: not the full-width program under the default gate")
+        g = torch.Generator().manual_seed(SEED + 21 + i)
+        kernel = torch.randn(prog.frontend.kernel_shape, generator=g) * 0.3
+        bn = torch.randint(0, 24, (prog.out_channels,), generator=g).float()
+        head = prog.init_head(g, device=dev)
+        model = fpca.compile(prog, device=dev, weights=kernel, bn_offset=bn, head_params=head,
+                             model=bucket_model, cache_capacity=64)
+        label = f"{arch} stream"
+
+        # -- the per-tick loop, launches counted by the wrapper -----------------
+        _reset_fpca_counts()
+        ticks, tick_ms = [], []
+        t0 = time.perf_counter()
+        for r in model.stream(frames, controller=None, depth=1):   # realised per tick: counts come to the host
+            t1 = time.perf_counter()
+            tick_ms.append((t1 - t0) * 1e3)
+            t0 = t1
+            ticks.append(r)
+        launched, designs = fpca_conv_cuda.launches, dict(fpca_conv_cuda.designs)
+        kept = np.array([r.kept_windows for r in ticks])
+        check(launched == int((kept > 0).sum()) and designs["wgmma"] == launched,
+              f"{label}: {launched} fpca launches by design {designs} for {int((kept > 0).sum())} ticks that keep windows")
+        out["launches"][label] = launched
+
+        # -- segments: the first pass captures, the second replays ----------------
+        t0 = time.perf_counter()
+        segs = _chained(model, frames)
+        torch.cuda.synchronize()
+        first_pass_ms = (time.perf_counter() - t0) * 1e3
+        graphs = [model._cache._entries[k].__wrapped__ for k in model.cache_info(verbose=True).resident
+                  if "segment" in k]
+        check(graphs and all(isinstance(gr, _CapturedSegment) and gr.capture_ms is not None for gr in graphs),
+              f"{arch}: segments on the card must be captured CUDA graphs")
+        capture_ms = [gr.capture_ms for gr in graphs]
+        misses = model.cache_info().misses
+        _reset_fpca_counts()
+        holder: dict = {}
+        events = device_events(lambda: holder.setdefault("segs", _chained(model, frames)), runs=1)
+        check(model.cache_info().misses == misses, f"{arch}: the second pass captured a new graph")
+        check(fpca_conv_cuda.launches == 0, f"{arch}: a replay went through the wrapper")
+        replay = fpca_kernel_launches(events)
+        check(replay == {"wgmma": n, "simt": 0},
+              f"{arch}: {replay} fpca kernels in {STREAM_SEGMENTS} replays, expected one tensor-core launch a tick ({n})")
+        out["launches"][f"{arch} segment replays"] = replay["wgmma"]
+        for a, b in zip(segs, holder["segs"]):
+            check(torch.equal(a.counts, b.counts) and torch.equal(a.logits, b.logits), f"{arch}: replays differ")
+        for s, seg in enumerate(segs):
+            for t in range(STREAM_K):
+                _same_tick(seg, t, ticks[s * STREAM_K + t], f"{arch} segment {s} tick {t}")
+        walked = sum(int(seg.kept_windows[:seg.ticks].sum()) for seg in segs)
+        billed = sum(int(seg.rows_executed.sum()) for seg in segs)
+        buckets = [seg.state.suggested_bucket for seg in segs]
+        print(f"{arch}: {n} ticks, {STREAM_SEGMENTS} segments == stream() bit for bit (counts, masks, "
+              f"{'detections' if arch == 'fpca_detect' else 'logits'}); kept windows per tick min "
+              f"{int(kept[:n].min())} median {float(np.median(kept[:n])):.0f} max {int(kept[:n].max())} of 576; "
+              f"suggested buckets {buckets}; rows the kernel walked {walked} (device n_keep), rows the "
+              f"reference's branches bill {billed} (rows_executed)")
+
+        # -- early exit on the static scene ---------------------------------------
+        rest = kept[n:]
+        quiet = next((t + 1 for t in range(STREAM_EARLY_EXIT - 1, len(rest))
+                      if not rest[t - STREAM_EARLY_EXIT + 1:t + 1].any()), STREAM_K)
+        ee = model.run_segment(frames[n:], state=segs[-1].state, early_exit=STREAM_EARLY_EXIT)
+        check(ee.ticks == quiet, f"{arch}: early exit after {ee.ticks} ticks, the per-tick loop goes quiet after {quiet}")
+        for t in range(ee.ticks):
+            _same_tick(ee, t, ticks[n + t], f"{arch} early-exit tick {t}")
+        check(torch.equal(ee.counts[ee.ticks:], torch.zeros_like(ee.counts[ee.ticks:])),
+              f"{arch}: ticks after the early exit must be zeros")
+        print(f"{arch}: early exit (patience {STREAM_EARLY_EXIT}) on the static scene stopped after {ee.ticks} "
+              f"ticks, where the per-tick loop goes quiet; its ticks are a bit-identical prefix")
+
+        # -- times: stream() per tick, segment replay per tick, device share --------
+        first = frames[:STREAM_K]
+        model.run_segment(first)   # the first segment's graph (fresh state, bucket M) is captured
+        seg_ms = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            model.run_segment(first)
+            torch.cuda.synchronize()
+            seg_ms.append((time.perf_counter() - t0) * 1e3)
+        replay_ms = statistics.median(seg_ms)
+        events = device_events(lambda: model.run_segment(first), runs=1)
+        device_ms = sum(e.device_time_total for e in events) / 1e3
+        per_tick = statistics.median(tick_ms[1:n])
+        res = {
+            "stream_ms_per_tick": per_tick,
+            "segment_ms_per_tick": replay_ms / STREAM_K,
+            "capture_ms": capture_ms,
+            "first_pass_ms": first_pass_ms,
+            "replay_device_ms_per_tick": device_ms / STREAM_K,
+            "replay_busy": device_ms / replay_ms,
+            "replay_device_ops": sum(e.count for e in events),
+            "fpca_launches_per_replay": replay["wgmma"] / STREAM_SEGMENTS,
+            "rows_walked": walked,
+            "rows_executed": billed,
+            "early_exit_ticks": ee.ticks,
+        }
+        print(f"{arch} on {smi}: stream() {per_tick:.4f} ms per tick (host clock, median of {n - 1}); segment "
+              f"replay {replay_ms / STREAM_K:.4f} ms per tick (median of 10 replays of {STREAM_K} ticks, "
+              f"{replay_ms:.3f} ms each); capture {', '.join(f'{c:.1f}' for c in capture_ms)} ms per graph "
+              f"(warm-up included); a replay: {device_ms / STREAM_K:.4f} ms device per tick, busy "
+              f"{device_ms / replay_ms:.1%}, {res['replay_device_ops']} device ops, fpca launches "
+              f"{replay['wgmma'] / STREAM_SEGMENTS:.0f} per replay (fpca_tc_kernel: the tensor-core design)")
+        rows = sorted(events, key=lambda e: e.device_time_total, reverse=True)[:6]
+        for e in rows:
+            print(f"  {e.key[:60]:60s} {e.device_time_total / 1e3:.4f} ms x{e.count}")
+
+        if arch == "fpca_cnn":
+            res.update(_stream_cnn_checks(dev, smi, model, prog, kernel, bn, head, bucket_model, frames, segs))
+        out["by_arch"][arch] = res
+    return out
+
+
+def _stream_cnn_checks(dev, smi, model, prog, kernel, bn, head, bucket_model, frames, segs) -> dict:
+    """fpca_cnn only: a dense segment against dense stream(), the basis
+    backend's segments on the card within the fpca limit, a reprogram and
+    a threshold change between segments that capture nothing, and the
+    kernel's time at M = 576 by device row count."""
+    first = frames[:STREAM_K]
+    dense = model.run_segment(first, gate=None)
+    for t, r in enumerate(model.stream(first, gate=None, controller=None)):
+        _same_tick(dense, t, r, f"fpca_cnn dense tick {t}")
+    check(not dense.gated and bool((dense.kept_windows == 576).all()), "fpca_cnn: the dense segment is not dense")
+    basis = fpca.compile(prog, backend="basis", device=dev, weights=kernel, bn_offset=bn, head_params=head,
+                         model=bucket_model, cache_capacity=64)
+    bsegs = _chained(basis, frames)
+    got = torch.cat([seg.counts for seg in segs])
+    want = torch.cat([seg.counts for seg in bsegs])
+    err, flips = count_diff(got, want)
+    check(all(bool((a.block_masks == b.block_masks).all()) for a, b in zip(segs, bsegs)),
+          "fpca_cnn: the basis backend's segments gate differently")
+    print(f"fpca_cnn segments, cuda vs basis backend on the card ({got.shape[0]} ticks): max|Δcount| {err}, "
+          f"flip share {flips:.3e} (limit: <= {COUNT_TOL} on < {FLIP_TOL} of counts); masks equal")
+    check(err <= COUNT_TOL and flips < FLIP_TOL, "fpca_cnn: segments on the cuda and basis backends disagree")
+    misses = model.cache_info().misses
+    g = torch.Generator().manual_seed(SEED + 31)
+    model.reprogram(torch.randn(prog.frontend.kernel_shape, generator=g) * 0.3, head_params=prog.init_head(g, device=dev))
+    for s in range(STREAM_SEGMENTS):
+        gate = fpca.DeltaGateConfig(threshold=0.02 * (1 + s))   # a servo step between segments: data, not a graph
+        model.run_segment(frames[s * STREAM_K:(s + 1) * STREAM_K], state=segs[s - 1].state if s else None,
+                          m_bucket=segs[s - 1].state.suggested_bucket if s else None, gate=gate)
+    check(model.cache_info().misses == misses, "fpca_cnn: reprogram or a threshold change captured a new graph")
+    print(f"fpca_cnn: reprogram and four threshold changes between segments: cache misses {misses} before and after")
+    # the kernel at M = 576 by device row count
+    spec = prog.spec
+    patches = extract_windows(torch.as_tensor(frames[:1], device=dev), spec).reshape(-1, spec.n_active_pixels).contiguous()
+    w_pos, w_neg = encode_weights(kernel.to(dev), spec, prog.frontend.enc)
+    tables = conv_tables(bucket_model, prog.frontend.adc, spec.n_active_pixels, dev)
+    planes = weight_planes(w_pos.T, w_neg.T, tables)
+    bn_dev = bn.to(dev)
+    full = fpca_conv_cuda(patches, planes, tables, bn_dev)
+    by_count = {}
+    for n_rows in STREAM_N_ROWS:
+        count = torch.tensor([n_rows], dtype=torch.int32, device=dev)
+        got = fpca_conv_cuda(patches, planes, tables, bn_dev, n_rows=count)
+        check(torch.equal(got[:n_rows], full[:n_rows]) and not bool(got[n_rows:].any()),
+              f"fpca_conv with n_rows={n_rows}: rows below the count must equal the full launch, the rest zeros")
+        by_count[n_rows] = time_cuda(lambda: fpca_conv_cuda(patches, planes, tables, bn_dev, n_rows=count))
+    print(f"fpca_conv at M={patches.shape[0]} on {smi}, by device row count: "
+          + ", ".join(f"n_rows={k} {v:.4f} ms" for k, v in by_count.items()))
+    return {"n_rows_ms": by_count, "cuda_vs_basis_max_err": err, "cuda_vs_basis_flip_share": flips}
 
 
 # ---------------------------------------------------------------------------

@@ -11,6 +11,8 @@ The reference's objects export plain numpy (``BucketCurvefitModel.to_dict()``,
     kernel = tensor_from_numpy(np.asarray(ref_kernel))   # on the card by default
     lm = lm_params_from_numpy(jax.tree.map(np.asarray, ref_lm_params))
     opt = adamw_state_from_numpy(*jax.tree.map(np.asarray, tuple(ref_adamw_state)))
+    st = segment_state_from_numpy(**{k: np.asarray(v) for k, v in
+                                     dataclasses.asdict(ref_seg.state).items()})
 
 Both sides then compute on the same numbers; random streams are never
 compared.
@@ -32,6 +34,7 @@ __all__ = [
     "bucket_model_from_dict",
     "head_params_from_numpy",
     "lm_params_from_numpy",
+    "segment_state_from_numpy",
     "tensor_from_numpy",
 ]
 
@@ -105,4 +108,38 @@ def adamw_state_from_numpy(
         step=torch.tensor(int(np.asarray(step)), dtype=torch.int32),
         mu=lm_params_from_numpy(mu, device=dev),
         nu=lm_params_from_numpy(nu, device=dev),
+    )
+
+
+def segment_state_from_numpy(
+    has_prev: Any,
+    prev_eff: Any,
+    age: Any,
+    frame_idx: Any,
+    eff: Any | None = None,
+    logits: Any | None = None,
+    suggested_bucket: int | None = None,
+    *,
+    device: str | torch.device | None = None,
+):
+    """A :class:`repro_torch.fpca.SegmentState` from the reference's
+    ``SegmentState`` fields as numpy, on ``device`` (the card by default),
+    so a stream the reference served can continue in the port: the gate
+    carry (``bool``, float32, int32, int32) and, for model segments, the
+    effective map and previous logits (float32)."""
+    from repro_torch.fpca.executable import SegmentState
+
+    dev = resolve_device(device)
+
+    def t(a: Any, dtype: torch.dtype) -> torch.Tensor | None:
+        return None if a is None else torch.tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    return SegmentState(
+        has_prev=t(has_prev, torch.bool),
+        prev_eff=t(prev_eff, torch.float32),
+        age=t(age, torch.int32),
+        frame_idx=t(frame_idx, torch.int32),
+        eff=t(eff, torch.float32),
+        logits=t(logits, torch.float32),
+        suggested_bucket=None if suggested_bucket is None else int(suggested_bucket),
     )

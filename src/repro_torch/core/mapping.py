@@ -12,7 +12,7 @@ import math
 
 import numpy as np
 
-__all__ = ["FPCASpec", "output_dims", "active_window_mask"]
+__all__ = ["FPCASpec", "output_dims", "n_cycles", "active_window_mask", "n_cycles_with_skipping"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +45,11 @@ class FPCASpec:
         return self.image_w // self.binning
 
     @property
+    def horizontal_phases(self) -> int:
+        """lcm(S, n) / S: ColP phases needed to cover one output row."""
+        return math.lcm(self.stride, self.max_kernel) // self.stride
+
+    @property
     def n_active_pixels(self) -> int:
         """Pixels activated per window read — always the full n*n*in_ch region."""
         return self.max_kernel * self.max_kernel * self.in_channels
@@ -58,6 +63,12 @@ def output_dims(spec: FPCASpec) -> tuple[int, int]:
     if h_o <= 0 or w_o <= 0:
         raise ValueError("image smaller than physical kernel footprint")
     return h_o, w_o
+
+
+def n_cycles(spec: FPCASpec) -> int:
+    """Eq. 1: ``N_C = 2 * h_o * c_o * lcm(S, n) / S``."""
+    h_o, _ = output_dims(spec)
+    return 2 * h_o * spec.out_channels * spec.horizontal_phases
 
 
 def active_window_mask(spec: FPCASpec, block_mask: np.ndarray | None) -> np.ndarray:
@@ -85,3 +96,22 @@ def active_window_mask(spec: FPCASpec, block_mask: np.ndarray | None) -> np.ndar
         for c in range(w_o):
             mask[r, c] = pixel_keep[r * s : r * s + n, c * s : c * s + n].any()
     return mask
+
+
+def n_cycles_with_skipping(spec: FPCASpec, block_mask: np.ndarray | None) -> int:
+    """Executed cycles under region skipping: a cycle fires iff it contains
+    at least one active window (the RS/SW gating is row/phase-granular)."""
+    if block_mask is None:
+        return n_cycles(spec)
+    mask = active_window_mask(spec, block_mask)
+    h_o, w_o = mask.shape
+    s = spec.stride
+    period = math.lcm(s, spec.max_kernel)
+    executed_row_phases = 0
+    all_cols = np.arange(w_o)
+    for r in range(h_o):
+        for phase in range(spec.horizontal_phases):
+            cols = all_cols[(all_cols * s) % period == phase * s]
+            if mask[r, cols].any():
+                executed_row_phases += 1
+    return 2 * spec.out_channels * executed_row_phases

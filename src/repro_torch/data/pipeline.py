@@ -1,5 +1,6 @@
-"""Deterministic, resumable synthetic LM data (the port's own copy of the
-reference's ``data/pipeline.py`` LM stream; numpy only).
+"""Deterministic, resumable synthetic data (the port's own copy of the
+reference's ``data/pipeline.py`` LM stream and moving-object video; numpy
+only, so both packages see the same bits).
 
 * **Stateless addressing**: every batch is a pure function of
   ``(seed, step)``; the only pipeline state is the step cursor saved in the
@@ -10,9 +11,11 @@ reference's ``data/pipeline.py`` LM stream; numpy only).
   with device steps on a worker thread and, past a deadline, reports the
   stall instead of blocking silently.
 
-The stream is a noisy affine-recurrence language (the next token mostly
+The LM stream is a noisy affine-recurrence language (the next token mostly
 determined by the previous one), so cross-entropy falls measurably within
-a few hundred steps, with no downloads.
+a few hundred steps, with no downloads.  ``SyntheticMovingObject`` is the
+streaming frontend's video: a static scene with one orbiting blob, each
+frame a pure function of ``(seed, t)``.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from typing import Any, Iterator
 
 import numpy as np
 
-__all__ = ["LMStreamConfig", "SyntheticLM", "PrefetchIterator"]
+__all__ = ["LMStreamConfig", "SyntheticLM", "SyntheticMovingObject", "PrefetchIterator"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +73,51 @@ class SyntheticLM:
         while True:
             yield self.batch_at(step)
             step += 1
+
+
+class SyntheticMovingObject:
+    """Deterministic video stream: static cluttered scene + one moving blob.
+
+    The streaming-frontend workload: frame-to-frame, only the pixels under
+    the blob's old and new positions change, so a temporal delta gate keeps a
+    small block fraction (tunable via ``radius``/``speed``).  ``frame_at(t)``
+    is a pure function of ``(seed, t)`` — streams restart and shard exactly
+    like the other synthetic pipelines here.
+    """
+
+    def __init__(
+        self,
+        image_hw: tuple[int, int] = (96, 96),
+        seed: int = 0,
+        radius: float = 7.0,
+        speed: float = 0.17,
+        amplitude: float = 0.55,
+    ):
+        self.h, self.w = image_hw
+        self.radius = radius
+        self.speed = speed
+        self.amplitude = amplitude
+        rng = np.random.default_rng(seed)
+        # static background: low-frequency clutter, fixed for the stream
+        base = rng.uniform(0.05, 0.35, (self.h // 8 + 1, self.w // 8 + 1, 3))
+        self._background = np.clip(
+            np.kron(base, np.ones((8, 8, 1)))[: self.h, : self.w], 0.0, 1.0
+        ).astype(np.float32)
+        self._yy, self._xx = np.mgrid[0 : self.h, 0 : self.w]
+        self._color = rng.uniform(0.6, 1.0, 3).astype(np.float32)
+
+    def frame_at(self, t: int) -> np.ndarray:
+        """Frame ``t``: the blob orbits the scene centre."""
+        cy = self.h / 2 + 0.30 * self.h * np.sin(self.speed * t)
+        cx = self.w / 2 + 0.30 * self.w * np.cos(self.speed * t)
+        d2 = (self._yy - cy) ** 2 + (self._xx - cx) ** 2
+        blob = self.amplitude * np.exp(-d2 / (2.0 * self.radius**2))
+        frame = self._background + blob[..., None].astype(np.float32) * self._color
+        return np.clip(frame, 0.0, 1.0).astype(np.float32)
+
+    def frames(self, n: int, start: int = 0):
+        for t in range(start, start + n):
+            yield self.frame_at(t)
 
 
 class PrefetchIterator:

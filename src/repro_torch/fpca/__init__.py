@@ -8,6 +8,9 @@
     model = fpca.build_model({"arch": "fpca_detect"})   # the model zoo
     m = fpca.compile(model, weights=kernel, head_params=model.init_head(gen))
     det = m.run(frames)                           # Detections (scores, boxes)
+
+    seg = m.run_segment(video[:32])               # 32 gated ticks, one CUDA graph
+    seg = m.run_segment(video[32:64], state=seg.state)
 """
 
 from repro_torch.core.adc import ADCConfig
@@ -22,7 +25,14 @@ from repro_torch.fpca.backends import (
     register_backend,
 )
 from repro_torch.fpca.cache import CacheInfo, CacheInfoVerbose, ExecutableCache
-from repro_torch.fpca.executable import CompiledFrontend, CompiledModel, FrontendStats, compile
+from repro_torch.fpca.executable import (
+    CompiledFrontend,
+    CompiledModel,
+    FrontendStats,
+    SegmentResult,
+    SegmentState,
+    compile,
+)
 from repro_torch.fpca.program import (
     ActivationSpec,
     ConvSpec,
@@ -67,6 +77,8 @@ __all__ = [
     "PoolSpec",
     "ProgrammedConfig",
     "ProgrammedModel",
+    "SegmentResult",
+    "SegmentState",
     "WeightEncoding",
     "available_archs",
     "available_backends",

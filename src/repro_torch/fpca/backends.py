@@ -4,7 +4,10 @@ Each :class:`Backend` names one way of evaluating a programmed array and
 carries ``make_executable``: a factory returning a fresh
 ``(images, kernel, bn_offset[, window_mask]) -> counts`` closure whose
 constant tables live (and die) with it.  :class:`repro_torch.fpca.CompiledFrontend`
-holds those closures in its bounded LRU cache.
+holds those closures in its bounded LRU cache, beside the whole-model
+closures of :meth:`Backend.make_model_executable` and the K-tick streaming
+segments of :meth:`Backend.make_segment_executable` (one CUDA graph each on
+the card).
 
 Built-ins:
 
@@ -21,15 +24,18 @@ Built-ins:
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+import time
+from typing import Any, Callable
 
 import torch
 
+from repro_torch.core import gating
 from repro_torch.core.adc import ADCConfig, updown_readout
 from repro_torch.core.curvefit import BucketCurvefitModel
 from repro_torch.core.fpca_sim import WeightEncoding, _analog_read, encode_weights, extract_windows
-from repro_torch.core.mapping import FPCASpec
+from repro_torch.core.mapping import FPCASpec, output_dims
 from repro_torch.kernels.fpca_conv.ops import make_fpca_conv_executable
+from repro_torch.training.tree import tree_leaves, tree_map
 
 __all__ = [
     "Backend",
@@ -56,6 +62,17 @@ class Backend:
     bucket_sensitive: bool = True
     quant_transfer: bool = False
     description: str = ""
+
+    def instrumented(self, fn: Callable, *, site: str) -> Callable:
+        """Wrap an executable with the opt-in device-profile hooks of
+        :func:`repro_torch.fpca.telemetry.instrument_launch` (launch count,
+        ``torch.profiler.record_function`` range, sampled device time),
+        labelled ``{site, backend}``.  :class:`repro_torch.fpca.CompiledFrontend`
+        routes every executable it builds through this; with telemetry off
+        it costs one ``is None`` check per call."""
+        from repro_torch.fpca.telemetry import instrument_launch
+
+        return instrument_launch(fn, site=site, backend=self.name)
 
     def make_model_executable(
         self,
@@ -88,6 +105,192 @@ class Backend:
             return head(head_params, frontend(images, kernel, bn_offset, *window_mask))
 
         return run
+
+    def make_segment_executable(
+        self,
+        bucket_model: BucketCurvefitModel,
+        *,
+        spec: FPCASpec,
+        adc: ADCConfig | None = None,
+        enc: WeightEncoding | None = None,
+        device: torch.device,
+        length: int,
+        gated: bool = True,
+        m_bucket: int | None = None,
+        model_program=None,                 # repro_torch.fpca.FPCAModelProgram
+        early_exit: int | None = None,
+        donate: bool = False,
+    ) -> Callable:
+        """A **segment** executable: ``length`` streaming ticks in one call,
+        the delta gate, hysteresis ages and keyframe cadence in the carry.
+
+        One tick body, written in torch, serves both devices.  Per tick it
+        steps the gate (:func:`repro_torch.core.gating.gate_tick`, the
+        numerics the per-tick loop runs on the same device), derives the
+        window mask, and runs this backend's frontend with ``m_bucket = M``:
+        every kept window compacted by an index built on the device, the
+        fpca kernel walking the device count of kept rows.  The reference's
+        branches are predication on the device:
+
+        * zero kept windows -> the kernel walks no rows (exact zeros), and a
+          model keeps its previous logits bit for bit
+          (``where(n_keep == 0, logits_prev, head(eff))``);
+        * ``n_keep > m_bucket`` -> the same launch walks ``n_keep`` rows,
+          bit-identical to masked dense (the kernel's rows are independent),
+          so ``m_bucket`` only sizes the host accounting;
+        * ``early_exit=p`` -> a device ``active`` flag (fewer than ``p``
+          consecutive all-skipped ticks so far): inactive ticks leave the
+          carry unchanged, emit zeros and walk no rows, and ``ticks`` is the
+          device count of active ticks.
+
+        With ``model_program`` each tick patches the kept windows into the
+        carried effective activation map and runs the head on it.
+
+        On the host the body runs eagerly, K ticks in a Python loop.  On the
+        card the first call warms the body up on a side stream, then
+        captures all K ticks as one ``torch.cuda.CUDAGraph``; every call
+        copies its inputs (frames, weights, head parameters, gate knobs,
+        carry) into the graph's static buffers, replays it and clones the
+        outputs.  The gate knobs and weights are data, so a servo step or a
+        ``reprogram`` between segments builds nothing.  A capture that fails
+        raises; the card never falls back to the eager loop.
+
+        Returned closure::
+
+            run(frames, kernel, bn_offset, head_params, gate_args, carry)
+              -> (outs, new_carry)
+
+        ``head_params`` is None without a model, ``gate_args = (threshold
+        f32, hysteresis i32, interval i32)`` 0-d tensors (None when not
+        gated), ``carry`` the flat gate-state tuple (plus ``(eff, logits)``
+        for models); ``outs`` maps ``counts``, ``block_keep``, ``kept``,
+        ``keyframe``, ``ticks`` (and ``logits``).  ``donate`` is accepted
+        for the reference's signature: the carry is always copied into the
+        graph's static buffers, so the caller's tensors stay valid.
+        """
+        del donate
+        adc = adc or ADCConfig()
+        enc = enc or WeightEncoding()
+        K = int(length)
+        if K < 1:
+            raise ValueError("segment length must be >= 1")
+        if early_exit is not None and not gated:
+            raise ValueError("early_exit requires a gated segment")
+        h_o, w_o = output_dims(spec)
+        M = h_o * w_o
+        bh, bw = gating.block_grid(spec)
+        head = model_program.apply_head if model_program is not None else None
+        kw = {}
+        if self.quant_transfer and model_program is not None and model_program.precision == "int8":
+            kw["transfer"] = "int8"
+        frontend = self.make_executable(
+            bucket_model, spec=spec, adc=adc, enc=enc, m_bucket=M if gated else None, device=device, **kw
+        )
+
+        def body(frames, kernel, bn_offset, head_params, gate_args, carry):
+            dev = frames.device
+            gate_carry = gating.GateCarry(*carry[:4])
+            eff_prev, logits_prev = (carry[4], carry[5]) if head is not None else (None, None)
+            quiet = torch.zeros((), dtype=torch.int32, device=dev)
+            ticks = torch.zeros((), dtype=torch.int32, device=dev) if early_exit is not None else None
+            outs: dict[str, list] = {"counts": [], "block_keep": [], "kept": [], "keyframe": []}
+            if head is not None:
+                outs["logits"] = []
+            for t in range(K):
+                frame = frames[t]
+                active = None
+                if gated:
+                    cur = gating.effective_frame(frame, spec)
+                    new_gate, keep, keyframe = gating.gate_tick(spec, gate_carry, cur, *gate_args)
+                    window = gating.window_mask_from_blocks(keep, spec)
+                    if early_exit is not None:
+                        active = quiet < early_exit
+                        window, keep, keyframe = window & active, keep & active, keyframe & active
+                        new_gate = gating.GateCarry(
+                            *(torch.where(active, n, o) for n, o in zip(new_gate, gate_carry))
+                        )
+                    n_keep = window.sum(dtype=torch.int32)
+                    counts = frontend(frame[None], kernel, bn_offset, window[None])[0]
+                else:
+                    keep = torch.ones((bh, bw), dtype=torch.bool, device=dev)
+                    keyframe = torch.zeros((), dtype=torch.bool, device=dev)
+                    n_keep = torch.full((), M, dtype=torch.int32, device=dev)
+                    new_gate = gate_carry._replace(frame_idx=gate_carry.frame_idx + 1)
+                    counts = frontend(frame[None], kernel, bn_offset)[0]
+                gate_carry = new_gate
+                if active is not None:
+                    quiet = torch.where(active, torch.where(n_keep == 0, quiet + 1, 0), quiet)
+                    ticks = ticks + active.to(torch.int32)
+                outs["counts"].append(counts)
+                outs["block_keep"].append(keep)
+                outs["kept"].append(n_keep)
+                outs["keyframe"].append(keyframe)
+                if head is not None:
+                    if gated:
+                        # a zero-kept (or inactive) tick has an all-False
+                        # window, so eff is eff_prev and the logits the
+                        # previous ones, bit for bit
+                        eff = torch.where(window[..., None], counts, eff_prev)
+                        logits = torch.where(n_keep == 0, logits_prev, head(head_params, eff[None])[0])
+                    else:
+                        eff = counts
+                        logits = head(head_params, eff[None])[0]
+                    eff_prev, logits_prev = eff, logits
+                    outs["logits"].append(logits if active is None else torch.where(active, logits, 0.0))
+            stacked = {k: torch.stack(v) for k, v in outs.items()}
+            stacked["ticks"] = torch.full((), K, dtype=torch.int32, device=dev) if ticks is None else ticks
+            new_carry = tuple(gate_carry) + ((eff_prev, logits_prev) if head is not None else ())
+            return stacked, new_carry
+
+        if device.type == "cuda":
+            return _CapturedSegment(body, device)
+        return body
+
+
+class _CapturedSegment:
+    """A segment body captured as one CUDA graph on its first call, then
+    replayed: each call copies its arguments into the graph's static input
+    buffers, replays, and returns clones of the static outputs.
+    ``capture_ms`` is the host time the warm-up and capture took."""
+
+    def __init__(self, body: Callable, device: torch.device):
+        self._body = body
+        self._device = device
+        self._graph: torch.cuda.CUDAGraph | None = None
+        self._static: tuple = ()
+        self._out: Any = None
+        self.capture_ms: float | None = None
+
+    def _capture(self, args: tuple) -> None:
+        t0 = time.perf_counter()
+        for leaf in tree_leaves(args):
+            if not isinstance(leaf, torch.Tensor):
+                raise TypeError(f"segment inputs must be tensors to be staged, got {type(leaf).__name__}")
+        self._static = tree_map(lambda a: a.to(self._device).clone(), args)
+        side = torch.cuda.Stream(self._device)
+        side.wait_stream(torch.cuda.current_stream(self._device))
+        # the warm-up builds the kernel library and sets its function
+        # attributes, and creates the cuBLAS / cuDNN handles: none of that
+        # may happen under capture
+        with torch.cuda.stream(side):
+            self._body(*self._static)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            self._out = self._body(*self._static)
+        torch.cuda.current_stream(self._device).wait_stream(side)
+        self._graph = graph
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+
+    def __call__(self, *args):
+        if self._graph is None:
+            self._capture(args)
+        else:
+            for dst, src in zip(tree_leaves(self._static), tree_leaves(args), strict=True):
+                if dst.shape != src.shape:
+                    raise ValueError(f"segment input of shape {tuple(src.shape)}, captured as {tuple(dst.shape)}")
+                dst.copy_(src, non_blocking=True)
+        self._graph.replay()
+        return tree_map(torch.clone, self._out)
 
 
 _REGISTRY: dict[str, Backend] = {}

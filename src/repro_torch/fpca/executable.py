@@ -6,6 +6,9 @@ explicit executable handles of the FPCA API::
     fe.reprogram(kernel)                           # cheap NVM rewrite
     counts = fe.run(batch)                         # one kernel launch
     fe.reprogram(other_kernel)                     # builds nothing new
+    for result in fe.stream(frames):               # delta-gated, per tick
+        ...
+    seg = fe.run_segment(frames[:32])              # 32 ticks, one CUDA graph
 
 ``compile()`` fits (or accepts) the calibrated bucket model, resolves the
 backend and device, and returns a handle that owns the bounded LRU of built
@@ -18,57 +21,173 @@ never builds an executable.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Iterable, Iterator
 
 import numpy as np
 import torch
 
+from repro_torch.core import gating
 from repro_torch.core.curvefit import BucketCurvefitModel, fit_bucket_model
 from repro_torch.core.mapping import FPCASpec, active_window_mask, output_dims
 from repro_torch.device import resolve_device
+from repro_torch.fpca import telemetry
 from repro_torch.fpca.backends import Backend, default_backend_name, get_backend
 from repro_torch.fpca.cache import CacheInfo, CacheInfoVerbose, ExecutableCache
 from repro_torch.fpca.program import FPCAModelProgram, FPCAProgram, _as_tensor
-from repro_torch.kernels.fpca_conv.ops import StickyBucket
+from repro_torch.kernels.fpca_conv.ops import StickyBucket, segment_bucket
 from repro_torch.models.heads import Detections
 from repro_torch.training.tree import tree_map
 
-__all__ = ["FrontendStats", "CompiledFrontend", "CompiledModel", "compile"]
+__all__ = [
+    "FrontendStats",
+    "SegmentState",
+    "SegmentResult",
+    "CompiledFrontend",
+    "CompiledModel",
+    "compile",
+]
+
+_USE_PROGRAM = object()   # stream() / run_segment() sentinel: "inherit from program"
+
+# Model-side workload accounting per zoo architecture (the ``arch`` stamp on
+# FPCAModelProgram; "custom" for hand-rolled programs): process-wide
+# labelled families in the telemetry registry.
+_C_MODEL_RUNS = telemetry.registry().counter(
+    "fpca_model_runs_total",
+    "model-side executable dispatches (fused, patched or segment)",
+    ("arch",), max_label_sets=64,
+)
+_C_MODEL_FRAMES = telemetry.registry().counter(
+    "fpca_model_frames_total",
+    "frames/ticks served by model-side dispatches",
+    ("arch",), max_label_sets=64,
+)
 
 
-@dataclasses.dataclass
-class FrontendStats:
-    """Per-handle serving counters (all monotonic).
+class FrontendStats(telemetry.StatsView):
+    """Per-handle serving counters (all monotonic), views over
+    :mod:`repro_torch.fpca.telemetry` registry cells.
 
     * ``runs``              — executable invocations
     * ``reprograms``        — weight rewrites
     * ``windows_total``     — windows submitted (incl. batch padding)
     * ``windows_executed``  — windows that reached the kernel (the row bucket
       on the region-skip path)
-    * ``launches_skipped``  — all-skipped calls that launched no kernel
+    * ``launches_skipped``  — all-skipped ticks that launched no kernel
+      (per-tick short-circuits and zero-kept ticks inside segments)
     * ``bucket_switches``   — served bucket-size transitions
     * ``bucket_shrinks_deferred`` — flap events sticky hysteresis absorbed
-    * ``segments`` / ``segment_ticks`` — compiled streaming segments (a later
-      slice of the port; zero here)
+    * ``segments``          — segment launches
+    * ``segment_ticks``     — ticks served from inside those launches
+
+    Constructed with a ``parent`` view (a pipeline's stats, when the port
+    has one), the cells chain into the parent's same-named cells, so every
+    increment lands in one place.
     """
 
-    runs: int = 0
-    reprograms: int = 0
-    windows_total: int = 0
-    windows_executed: int = 0
-    launches_skipped: int = 0
-    bucket_switches: int = 0
-    bucket_shrinks_deferred: int = 0
-    segments: int = 0
-    segment_ticks: int = 0
+    _PREFIX = "fpca_frontend"
+    # a handle run is one pipeline batch; reprograms stay per handle
+    _PARENT_MAP = {"runs": "batches", "reprograms": None}
+    _FIELDS = (
+        "runs",
+        "reprograms",
+        "windows_total",
+        "windows_executed",
+        "launches_skipped",
+        "bucket_switches",
+        "bucket_shrinks_deferred",
+        "segments",
+        "segment_ticks",
+    )
 
-    def snapshot(self) -> dict[str, int]:
-        return dataclasses.asdict(self)
+
+@dataclasses.dataclass
+class SegmentState:
+    """Carry threaded between :meth:`CompiledFrontend.run_segment` calls.
+
+    The first four fields are the delta-gate state on the device
+    (:class:`repro_torch.core.gating.GateCarry`); model segments add the
+    effective activation map and the previous logits.  ``suggested_bucket``
+    is a host-side hint: the compacted-row bucket the finished segment's kept
+    counts size for the next one
+    (:func:`repro_torch.kernels.fpca_conv.ops.segment_bucket`).  Thread the
+    ``state`` of one :class:`SegmentResult` into the next call.
+    """
+
+    has_prev: Any
+    prev_eff: Any
+    age: Any
+    frame_idx: Any
+    eff: Any | None = None           # model segments: effective activation map
+    logits: Any | None = None        # model segments: previous logits
+    suggested_bucket: int | None = None
+
+    def carry(self, model: bool, device: torch.device) -> tuple:
+        """The carry tuple on ``device`` (tensors, or numpy from the
+        reference's state through :func:`repro_torch.convert.segment_state_from_numpy`)."""
+        c = (
+            torch.as_tensor(self.has_prev, dtype=torch.bool, device=device),
+            torch.as_tensor(self.prev_eff, dtype=torch.float32, device=device),
+            torch.as_tensor(self.age, dtype=torch.int32, device=device),
+            torch.as_tensor(self.frame_idx, dtype=torch.int32, device=device),
+        )
+        if model:
+            if self.eff is None or self.logits is None:
+                raise ValueError(
+                    "model segment needs a state carrying (eff, logits) — "
+                    "thread the state a CompiledModel.run_segment returned"
+                )
+            c += (
+                torch.as_tensor(self.eff, dtype=torch.float32, device=device),
+                torch.as_tensor(self.logits, dtype=torch.float32, device=device),
+            )
+        return c
+
+
+@dataclasses.dataclass
+class SegmentResult:
+    """Outputs of one streaming segment.
+
+    Per-tick arrays span the full segment ``length`` K; with early exit only
+    the first ``ticks`` entries are meaningful (``counts`` past ``ticks``
+    are zeros, ``kept_windows`` zeros, masks False).  ``counts`` (and
+    ``logits``) stay tensors on the handle's device; the small per-tick
+    bookkeeping arrays are realised on the host for the stats and the
+    boundary servo.
+    """
+
+    counts: Any                      # (K, h_o, w_o, c_o) tensor on the device
+    block_masks: np.ndarray          # (K, bh, bw) bool
+    kept_windows: np.ndarray         # (K,) int
+    keyframes: np.ndarray            # (K,) bool
+    rows_executed: np.ndarray        # (K,) int: the rows the reference's branches bill
+    ticks: int                       # ticks executed (K, or fewer with early exit)
+    length: int                      # segment length K
+    first_frame_idx: int             # stream frame index of tick 0
+    gated: bool
+    state: SegmentState
+    logits: Any | None = None        # model segments: (K,) + head_out_shape
+    detect_classes: int | None = None  # detection segments: class count
+
+    def detections(self) -> list:
+        """Per-tick :class:`Detections` of a detection segment (the first
+        ``ticks`` entries, on the host; raises for classifier segments)."""
+        if self.detect_classes is None:
+            raise ValueError("not a detection segment: this model's head emits logits")
+        raw = _host(self.logits)[: self.ticks]
+        return [Detections.from_raw(r, self.detect_classes) for r in raw]
 
 
 def _round_up_pow2(n: int) -> int:
     return 1 << (n - 1).bit_length()
+
+
+def _host(x: Any) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 def _host_bool(x: Any) -> np.ndarray:
@@ -90,7 +209,9 @@ def _patch(device: torch.device, counts: Any, prev_eff: Any, window_keep: Any) -
 class CompiledFrontend:
     """An explicitly-held FPCA executable: one program, one backend, one
     device, weights swappable without building anything.  Construct via
-    :func:`compile`."""
+    :func:`compile`.  :meth:`stream` serves a camera tick by tick;
+    :meth:`run_segment` serves K ticks in one call (one CUDA graph replay on
+    the card)."""
 
     def __init__(
         self,
@@ -166,9 +287,10 @@ class CompiledFrontend:
         bn_offset = torch.as_tensor(bn_offset, dtype=torch.float32, device=self.device)
         if tuple(bn_offset.shape) != (self.out_channels,):
             raise ValueError(f"bn_offset shape {tuple(bn_offset.shape)} != ({self.out_channels},)")
-        self._kernel = kernel
-        self._bn = bn_offset
-        self.stats.reprograms += 1
+        with telemetry.span("reprogram"):
+            self._kernel = kernel
+            self._bn = bn_offset
+            self.stats.reprograms += 1
         return self
 
     # -- execution -----------------------------------------------------------
@@ -201,7 +323,8 @@ class CompiledFrontend:
                 window_keep = np.broadcast_to(keep, (images.shape[0],) + keep.shape)
             else:
                 window_keep = np.stack([active_window_mask(self.spec, m) for m in block_mask])
-        out = self.run_weighted(kernel, self._bn, images, window_keep)
+        with telemetry.span("run"):
+            out = self.run_weighted(kernel, self._bn, images, window_keep)
         return out[0] if squeeze else out
 
     def run_weighted(
@@ -281,6 +404,307 @@ class CompiledFrontend:
         mask = torch.as_tensor(window_keep, device=self.device)
         return executable_for(m_bucket)(images, kernel, bn_offset, *extra, mask)[:b]
 
+    # -- streaming -------------------------------------------------------------
+    def stream(
+        self,
+        frames: Iterable[Any],
+        *,
+        gate: Any = _USE_PROGRAM,
+        controller: Any = _USE_PROGRAM,
+        depth: int = 2,
+        stream_id: str = "stream0",
+    ) -> Iterator[Any]:
+        """Serve a continuous frame stream through this handle, tick by tick.
+
+        Each frame steps a temporal delta gate (default ``program.gate``;
+        ``gate=None`` reads densely even on a gated program), optionally
+        servoed by a closed-loop threshold controller (default
+        ``program.controller``; ``None`` disables); the keep mask is
+        compacted in the kernel path.  Up to ``depth`` ticks stay in flight
+        (the device work is asynchronous; the gate is not), and results
+        yield in frame order as
+        :class:`repro_torch.serving.streaming.StreamFrameResult`.
+        """
+        from repro_torch.serving.control import GateController
+        from repro_torch.serving.streaming import StreamFrameResult, StreamSession
+
+        if depth < 1:
+            raise ValueError("depth must be >= 1")
+        gate = self.program.gate if gate is _USE_PROGRAM else gate
+        cconf = self.program.controller if controller is _USE_PROGRAM else controller
+        ctl = (
+            GateController(cconf, self.spec, gate.threshold, name=stream_id)
+            if (cconf is not None and gate is not None)
+            else None
+        )
+        session = StreamSession(stream_id, "__compiled__", self.spec, gate, controller=ctl, device=self.device)
+        self._stream_session = session   # introspectable (controller history)
+        h_o, w_o = output_dims(self.spec)
+
+        def _finalize(entry: dict):
+            return StreamFrameResult(
+                stream_id=stream_id,
+                frame_idx=entry["frame_idx"],
+                counts=_host(entry["counts"])[0],
+                block_mask=entry["block_mask"],
+                kept_windows=entry["kept"],
+                total_windows=h_o * w_o,
+                config="__compiled__",
+                **self._stream_extra_results(entry),
+            )
+
+        inflight: collections.deque[dict] = collections.deque()
+        state: dict = {}   # per-iterator stream state (a model's effective map)
+        span_fields = {"stream": stream_id}
+        for frame in frames:
+            with telemetry.span("serve_tick", span_fields):
+                frame = np.asarray(_host(frame), np.float32)
+                frame_idx = session.frame_idx
+                block = session.step(frame)
+                window = session.last_window_mask if gate is not None else None
+                kept = int(window.sum()) if window is not None else h_o * w_o
+                entry = {"frame_idx": frame_idx, "block_mask": block, "kept": kept}
+                entry.update(self._stream_launch(frame, window, state))
+            inflight.append(entry)
+            while len(inflight) > depth:
+                yield _finalize(inflight.popleft())
+        while inflight:
+            yield _finalize(inflight.popleft())
+
+    def _stream_launch(self, frame: np.ndarray, window: np.ndarray | None, state: dict) -> dict:
+        """Dispatch one stream tick; returns the entry's fields.  ``state`` is
+        private to one ``stream()`` iterator."""
+        counts = self.run_weighted(
+            self._require_weights(), self._bn, frame[None], None if window is None else window[None]
+        )
+        return {"counts": counts}
+
+    def _stream_extra_results(self, entry: dict) -> dict:
+        """Extra ``StreamFrameResult`` fields realised from a tick entry."""
+        return {}
+
+    # -- segments ----------------------------------------------------------------
+    def run_segment(
+        self,
+        frames: Any,
+        *,
+        length: int | None = None,
+        state: SegmentState | None = None,
+        gate: Any = _USE_PROGRAM,
+        m_bucket: int | None = None,
+        early_exit: int | None = None,
+        donate: bool | None = None,
+    ) -> SegmentResult:
+        """Serve ``K`` streaming ticks in one call: the per-tick loop of
+        :meth:`stream` (delta gate, hysteresis ages, keyframe cadence,
+        kept-window compaction, the zero-kept short-circuit) as one tick body
+        run K times, captured as one CUDA graph on the card
+        (:meth:`repro_torch.fpca.Backend.make_segment_executable`).  Outputs
+        are bit-identical, tick for tick, to :meth:`stream` on the same
+        device.
+
+        Args:
+          frames: ``(K, H, W, c_i)`` stack; ``K`` is fixed per executable,
+            so serve a stream in fixed-length chunks.
+          length: optional check that ``K`` is the planned segment length.
+          state: the previous segment's :attr:`SegmentResult.state`; ``None``
+            starts a fresh stream (the first tick keyframes).
+          gate: ``DeltaGateConfig`` for this segment (default: the
+            program's; ``None`` = dense readout).  Its knobs are data: a
+            servo retunes them between segments without building anything.
+          m_bucket: the compacted-row bucket the host accounting bills for
+            non-keyframe ticks (busier ticks bill M).  Default: the state's
+            ``suggested_bucket``, M for the first segment.  On the device
+            every tick walks exactly its kept rows.
+          early_exit: stop after this many consecutive all-skipped ticks;
+            ``result.ticks`` says how far the segment got.
+          donate: accepted for the reference's signature; the carry is
+            always copied into the executable's own buffers, so the given
+            state stays valid.
+        """
+        return self.run_segment_weighted(
+            self._require_weights(), self._bn, frames,
+            length=length, state=state, gate=gate, m_bucket=m_bucket,
+            early_exit=early_exit, donate=donate,
+        )
+
+    def run_segment_weighted(
+        self,
+        kernel: torch.Tensor,
+        bn_offset: torch.Tensor,
+        frames: Any,
+        *,
+        length: int | None = None,
+        state: SegmentState | None = None,
+        gate: Any = _USE_PROGRAM,
+        m_bucket: int | None = None,
+        early_exit: int | None = None,
+        donate: bool | None = None,
+    ) -> SegmentResult:
+        """:meth:`run_segment` with explicit weights (they are data: a
+        ``reprogram`` between segments builds nothing)."""
+        return self._dispatch_segment(
+            kernel, bn_offset, frames, length=length, state=state, gate=gate,
+            m_bucket=m_bucket, early_exit=early_exit, donate=donate, head_params=None,
+        )
+
+    def _dispatch_segment(self, *args: Any, **kwargs: Any) -> SegmentResult:
+        if not telemetry.enabled():
+            return self._dispatch_segment_inner(*args, **kwargs)
+        with telemetry.span("run_segment", {"model": kwargs.get("head_params") is not None}):
+            return self._dispatch_segment_inner(*args, **kwargs)
+
+    def _dispatch_segment_inner(
+        self,
+        kernel: torch.Tensor,
+        bn_offset: torch.Tensor,
+        frames: Any,
+        *,
+        length: int | None,
+        state: SegmentState | None,
+        gate: Any,
+        m_bucket: int | None,
+        early_exit: int | None,
+        donate: bool | None,
+        head_params: Any | None,
+    ) -> SegmentResult:
+        spec = self.spec
+        # on the card the segment's graph stages the frames wherever they are
+        frames = torch.as_tensor(frames, dtype=torch.float32, device=self.device if self.device.type == "cpu" else None)
+        want = (spec.image_h, spec.image_w, spec.in_channels)
+        if frames.ndim != 4 or tuple(frames.shape[1:]) != want:
+            raise ValueError(
+                f"expected (K, {want[0]}, {want[1]}, {want[2]}) frame stack, got {tuple(frames.shape)}"
+            )
+        K = int(frames.shape[0])
+        if K < 1:
+            raise ValueError("need at least one frame")
+        if length is not None and int(length) != K:
+            raise ValueError(f"length={length} does not match the {K}-frame stack")
+        c_o = int(kernel.shape[0])
+        if c_o != self.out_channels:
+            raise ValueError(
+                f"kernel has {c_o} output channels; this handle is compiled for {self.out_channels}"
+            )
+        gate = self.program.gate if gate is _USE_PROGRAM else gate
+        gated = gate is not None
+        h_o, w_o = output_dims(spec)
+        M = h_o * w_o
+        bh, bw = gating.block_grid(spec)
+        is_model = head_params is not None
+        if gated:
+            if m_bucket is None:
+                m_bucket = state.suggested_bucket if state is not None and state.suggested_bucket else M
+            m_bucket = max(1, min(int(m_bucket), M))
+        else:
+            m_bucket = None
+        if early_exit is not None:
+            early_exit = int(early_exit)
+            if early_exit < 1:
+                raise ValueError("early_exit patience must be >= 1")
+            if not gated:
+                raise ValueError("early_exit requires a gated segment")
+        if donate is None:
+            donate = self.device.type != "cpu"
+        run = self._segment_executable(K, m_bucket, gated, early_exit, bool(donate), model=is_model)
+        if state is None:
+            state = self._fresh_segment_state(gate.hysteresis if gated else 0, is_model)
+        first_idx = int(state.frame_idx)
+        gate_args = None
+        if gated:
+            gate_args = (
+                torch.tensor(gate.threshold, dtype=torch.float32),
+                torch.tensor(gate.hysteresis, dtype=torch.int32),
+                torch.tensor(gate.keyframe_interval, dtype=torch.int32),
+            )
+        outs, new_carry = run(frames, kernel, bn_offset, head_params, gate_args, state.carry(is_model, self.device))
+        # the per-tick bookkeeping is realised here (it feeds the stats and
+        # the boundary servo); counts and logits stay on the device
+        ticks = int(outs["ticks"])
+        if gated:
+            kept = _host(outs["kept"]).astype(np.int64)
+            keyframes = _host(outs["keyframe"]).astype(bool)
+            block_masks = _host(outs["block_keep"]).astype(bool)
+            rows = np.where(kept == 0, 0, np.where(kept > m_bucket, M, m_bucket))
+            rows[ticks:] = 0
+            suggested = segment_bucket(kept[:ticks], M, keyframes[:ticks])
+        else:
+            kept = np.full(K, M, np.int64)
+            keyframes = np.zeros(K, bool)
+            block_masks = np.ones((K, bh, bw), bool)
+            rows = np.full(K, M, np.int64)
+            suggested = None
+        new_state = SegmentState(*new_carry[:4])
+        if is_model:
+            new_state.eff, new_state.logits = new_carry[4], new_carry[5]
+        new_state.suggested_bucket = suggested
+        self.stats.runs += 1
+        self.stats.segments += 1
+        self.stats.segment_ticks += ticks
+        self.stats.windows_total += ticks * M
+        self.stats.windows_executed += int(rows[:ticks].sum())
+        if gated:
+            self.stats.launches_skipped += int((kept[:ticks] == 0).sum())
+        return SegmentResult(
+            counts=outs["counts"],
+            block_masks=block_masks,
+            kept_windows=kept,
+            keyframes=keyframes,
+            rows_executed=rows,
+            ticks=ticks,
+            length=K,
+            first_frame_idx=first_idx,
+            gated=gated,
+            state=new_state,
+            logits=outs.get("logits"),
+            detect_classes=self.model_program.detect_classes if is_model else None,
+        )
+
+    def _fresh_segment_state(self, hysteresis: int, is_model: bool) -> SegmentState:
+        st = SegmentState(*gating.init_gate_carry(self.spec, hysteresis, self.device))
+        if is_model:
+            h_o, w_o = output_dims(self.spec)
+            st.eff = torch.zeros((h_o, w_o, self.out_channels), device=self.device)
+            st.logits = torch.zeros(self.model_program.head_out_shape, device=self.device)
+        return st
+
+    def _segment_executable(
+        self,
+        K: int,
+        m_bucket: int | None,
+        gated: bool,
+        early_exit: int | None,
+        donate: bool,
+        *,
+        model: bool = False,
+    ) -> Callable:
+        mb_key = m_bucket
+        if mb_key is not None and not self.backend.bucket_sensitive:
+            mb_key = -1
+        key = self.signature() + (
+            self.backend.name, "segment", K, mb_key, gated, early_exit, donate, model, str(self.device),
+        )
+
+        def build() -> Callable:
+            return self.backend.instrumented(
+                self.backend.make_segment_executable(
+                    self.model,
+                    spec=self.spec,
+                    adc=self.program.adc,
+                    enc=self.program.enc,
+                    device=self.device,
+                    length=K,
+                    gated=gated,
+                    m_bucket=m_bucket,
+                    model_program=self.model_program if model else None,
+                    early_exit=early_exit,
+                    donate=donate,
+                ),
+                site="segment",
+            )
+
+        return self._cache.get(key, build)
+
     # -- internals -----------------------------------------------------------
     def _require_weights(self) -> torch.Tensor:
         if self._kernel is None:
@@ -308,9 +732,12 @@ class CompiledFrontend:
 
         def build() -> Callable:
             kw = {"transfer": transfer} if transfer != "f32" else {}
-            return self.backend.make_executable(
-                self.model, spec=self.spec, adc=self.program.adc, enc=self.program.enc,
-                m_bucket=m_bucket, device=self.device, **kw,
+            return self.backend.instrumented(
+                self.backend.make_executable(
+                    self.model, spec=self.spec, adc=self.program.adc, enc=self.program.enc,
+                    m_bucket=m_bucket, device=self.device, **kw,
+                ),
+                site="frontend",
             )
 
         return self._cache.get(key, build)
@@ -333,7 +760,10 @@ class CompiledModel(CompiledFrontend):
     :meth:`run` returns class logits (or :class:`Detections` for a
     detection head) from one executable (frontend, then head);
     :meth:`reprogram` rewrites NVM planes and/or head parameters, neither
-    of which builds anything.
+    of which builds anything.  :meth:`stream` and :meth:`run_segment` are
+    skip-aware: each gated tick patches the kept-window activations into
+    the previous effective activation map and runs the head on the patched
+    map, so an all-skipped tick reproduces the previous logits exactly.
     """
 
     def __init__(self, model_program: FPCAModelProgram, *, head_params: Any | None = None, **kw: Any):
@@ -345,6 +775,8 @@ class CompiledModel(CompiledFrontend):
         self._head_params: Any | None = None
         # the zoo's stamp, a label only ("custom" off the registry)
         self.arch = model_program.arch or "custom"
+        self._m_runs = _C_MODEL_RUNS.labels(arch=self.arch)
+        self._m_frames = _C_MODEL_FRAMES.labels(arch=self.arch)
         if head_params is not None:
             self.reprogram(head_params=head_params)
 
@@ -393,9 +825,14 @@ class CompiledModel(CompiledFrontend):
         elif bn_offset is not None:
             super().reprogram(self._require_weights(), bn_offset)
         if head_params is not None:
-            self._head_params = self.model_program.bind_head_params(head_params, device=self.device)
             if kernel is None and bn_offset is None:
-                self.stats.reprograms += 1
+                # a head-only rewrite: the base reprogram (and its span) did
+                # not run, so count and trace it here
+                with telemetry.span("reprogram"):
+                    self._head_params = self.model_program.bind_head_params(head_params, device=self.device)
+                    self.stats.reprograms += 1
+            else:
+                self._head_params = self.model_program.bind_head_params(head_params, device=self.device)
         return self
 
     def _require_head(self) -> Any:
@@ -437,9 +874,11 @@ class CompiledModel(CompiledFrontend):
         all-skipped batch launches no kernel and serves the head on the
         exact-zero activation map."""
         hp = self._require_head() if head_params is None else head_params
+        self._m_runs.add(1)
+        self._m_frames.add(int(np.shape(images)[0]))
 
         def empty(b: int, h_o: int, w_o: int, c_o: int) -> torch.Tensor:
-            return self.head_logits(torch.zeros((b, h_o, w_o, c_o), device=self.device), hp)
+            return self.model_program.apply_head(hp, torch.zeros((b, h_o, w_o, c_o), device=self.device))
 
         return self._dispatch_weighted(
             kernel, bn_offset, images, window_keep,
@@ -460,6 +899,7 @@ class CompiledModel(CompiledFrontend):
     def head_logits(self, counts: Any, head_params: Any | None = None) -> torch.Tensor:
         """Digital head on an explicit activation map."""
         hp = self._require_head() if head_params is None else head_params
+        self._m_runs.add(1)
         counts = torch.as_tensor(counts, dtype=torch.float32, device=self.device)
         return self.model_program.apply_head(hp, counts)
 
@@ -475,6 +915,8 @@ class CompiledModel(CompiledFrontend):
         ``(logits, effective)``; callers carry ``effective`` forward as the
         next tick's ``prev_eff``."""
         hp = self._require_head() if head_params is None else head_params
+        self._m_runs.add(1)
+        self._m_frames.add(int(np.shape(counts)[0]))
         eff = _patch(self.device, counts, prev_eff, window_keep)
         return self.model_program.apply_head(hp, eff), eff
 
@@ -492,6 +934,8 @@ class CompiledModel(CompiledFrontend):
         Row for row bit-identical to :meth:`patched_logits` on that row:
         each row runs the head at batch 1, as a per-row call does (a
         batched conv or GEMM may sum in another order)."""
+        self._m_runs.add(1)
+        self._m_frames.add(int(np.shape(counts)[0]))
         eff = _patch(self.device, counts, prev_eff, window_keep)
         head = self.model_program.apply_head
         rows = [
@@ -500,14 +944,69 @@ class CompiledModel(CompiledFrontend):
         ]
         return torch.stack(rows), eff
 
+    # -- segments and streaming --------------------------------------------------
+    def run_segment_weighted(
+        self,
+        kernel: torch.Tensor,
+        bn_offset: torch.Tensor,
+        frames: Any,
+        *,
+        head_params: Any | None = None,
+        length: int | None = None,
+        state: SegmentState | None = None,
+        gate: Any = _USE_PROGRAM,
+        m_bucket: int | None = None,
+        early_exit: int | None = None,
+        donate: bool | None = None,
+    ) -> SegmentResult:
+        """Model variant of :meth:`CompiledFrontend.run_segment_weighted`:
+        each tick's skip-aware head pass runs inside the segment, carrying
+        the previous effective map and logits on the device.
+        ``result.logits`` is ``(K,) + head_out_shape`` (class logits, or raw
+        per-cell maps that ``result.detections()`` splits)."""
+        hp = self._require_head() if head_params is None else head_params
+        seg = self._dispatch_segment(
+            kernel, bn_offset, frames, length=length, state=state, gate=gate,
+            m_bucket=m_bucket, early_exit=early_exit, donate=donate, head_params=hp,
+        )
+        self._m_runs.add(1)
+        self._m_frames.add(seg.ticks)
+        return seg
+
+    def _stream_launch(self, frame: np.ndarray, window: np.ndarray | None, state: dict) -> dict:
+        h_o, w_o = output_dims(self.spec)
+        counts = self.run_frontend_weighted(
+            self._require_weights(), self._bn, frame[None], None if window is None else window[None]
+        )
+        # the effective activation map lives in the iterator's state, never
+        # on the handle: concurrent stream() iterators stay independent
+        prev = state.get("eff")
+        if prev is None:
+            prev = torch.zeros((1, h_o, w_o, self.out_channels), device=self.device)
+        keep = np.ones((1, h_o, w_o), bool) if window is None else window[None]
+        logits, eff = self.patched_logits(counts, prev, keep)
+        state["eff"] = eff
+        return {"counts": counts, "logits": logits}
+
+    def _stream_extra_results(self, entry: dict) -> dict:
+        lg = _host(entry["logits"])[0]
+        out: dict = {"logits": lg}
+        dc = self.detect_classes
+        if dc is not None:
+            out["detections"] = Detections.from_raw(lg, dc)
+        return out
+
     def _model_executable(self, m_bucket: int | None) -> Callable:
         if m_bucket is not None and not self.backend.bucket_sensitive:
             m_bucket = -1
         key = self._model_sig + (self.backend.name, "model", m_bucket, str(self.device))
 
         def build() -> Callable:
-            return self.backend.make_model_executable(
-                self.model_program, self.model, m_bucket=m_bucket, device=self.device
+            return self.backend.instrumented(
+                self.backend.make_model_executable(
+                    self.model_program, self.model, m_bucket=m_bucket, device=self.device
+                ),
+                site="model",
             )
 
         return self._cache.get(key, build)
@@ -553,17 +1052,18 @@ def compile(  # noqa: A001  (torch.compile-style public name)
     dev = resolve_device(device)
     frontend = program.frontend if is_model else program
     be = get_backend(backend if backend is not None else default_backend_name(dev))
-    if model is None:
-        model = fit_bucket_model(frontend.circuit, n_pixels=frontend.spec.n_active_pixels, device=dev)
-    common = dict(
-        backend=be, model=model, device=dev, cache=cache,
-        cache_capacity=cache_capacity, bucket_patience=bucket_patience,
-    )
-    handle: CompiledFrontend
-    if is_model:
-        handle = CompiledModel(program, head_params=head_params, **common)
-    else:
-        handle = CompiledFrontend(program, **common)
-    if weights is not None:
-        handle.reprogram(weights, bn_offset)
+    with telemetry.span("compile", {"backend": be.name, "model": is_model}):
+        if model is None:
+            model = fit_bucket_model(frontend.circuit, n_pixels=frontend.spec.n_active_pixels, device=dev)
+        common = dict(
+            backend=be, model=model, device=dev, cache=cache,
+            cache_capacity=cache_capacity, bucket_patience=bucket_patience,
+        )
+        handle: CompiledFrontend
+        if is_model:
+            handle = CompiledModel(program, head_params=head_params, **common)
+        else:
+            handle = CompiledFrontend(program, **common)
+        if weights is not None:
+            handle.reprogram(weights, bn_offset)
     return handle

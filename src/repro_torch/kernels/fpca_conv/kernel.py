@@ -192,19 +192,26 @@ def fpca_conv_basis(
     bn_offset: torch.Tensor,
     *,
     row_valid: torch.Tensor | None = None,
+    n_rows: torch.Tensor | None = None,
     lut: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The kernel's math in plain PyTorch: counts ``(M, C)``, float32 and
     integer-valued.  ``row_valid (M,)`` marks the real rows of a region-skip
-    compacted bucket; rows with 0 come out as exact zeros.  ``lut``, the
-    ``(256, 1 + 10)`` table of :func:`repro_torch.kernels.fpca_conv.ops.
-    _transfer_lut`, selects the int8 transfer (see :func:`basis_epilogue`)."""
+    compacted bucket; rows with 0 come out as exact zeros.  ``n_rows``, a
+    one-element int32 tensor, is the kernel's device row count: rows at or
+    past it come out as exact zeros.  ``lut``, the ``(256, 1 + 10)`` table
+    of :func:`repro_torch.kernels.fpca_conv.ops._transfer_lut`, selects the
+    int8 transfer (see :func:`basis_epilogue`)."""
     x = patches.float()
     xp = {1: x, 2: x * x, 3: x * x * x}
     maskv = tables.mask[:, None]
     rv = {a: xp[a] @ maskv for a in (1, 2, 3)}                 # (M, 1) each
     mm = [{(a, b): xp[a] @ planes["w_pows"][p, b - 1] for (a, b) in _MM_PAIRS} for p in (0, 1)]
-    return basis_epilogue(rv, mm, planes, tables, bn_offset, row_valid=row_valid, lut=lut)
+    counts = basis_epilogue(rv, mm, planes, tables, bn_offset, row_valid=row_valid, lut=lut)
+    if n_rows is not None:
+        walked = torch.arange(counts.shape[0], device=counts.device) < n_rows.reshape(())
+        counts = torch.where(walked[:, None], counts, torch.zeros_like(counts))
+    return counts
 
 
 def basis_epilogue(
@@ -268,7 +275,7 @@ def _launcher() -> ctypes._CFuncPtr:
     from repro_torch.kernels import _build
 
     fn = _build.load("fpca_conv").fpca_conv_launch
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -309,18 +316,23 @@ def fpca_conv_cuda(
     bn_offset: torch.Tensor,
     *,
     row_valid: torch.Tensor | None = None,
+    n_rows: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """FPCA analog conv counts ``(M, C)`` through the CUDA kernel.
 
     ``patches (M, N)`` float32, ``planes`` from :func:`weight_planes`,
-    ``bn_offset (C,)``, ``row_valid (M,)`` optional.  A CPU ``patches``
-    takes :func:`fpca_conv_basis`; a CUDA one launches the kernel on the
-    current stream, or raises.  Every launch adds one to
+    ``bn_offset (C,)``, ``row_valid (M,)`` optional.  ``n_rows``, a
+    one-element int32 tensor on the device, bounds the rows the kernel walks
+    (rows at or past it are exact zeros; the launch grid stays sized by M),
+    so a launch captured in a CUDA graph serves every count.  A CPU
+    ``patches`` takes :func:`fpca_conv_basis`; a CUDA one launches the
+    kernel on the current stream, or raises.  Every launch adds one to
     ``fpca_conv_cuda.launches`` and to its design's count in
-    ``fpca_conv_cuda.designs`` (:func:`design`).
+    ``fpca_conv_cuda.designs`` (:func:`design`); a replay of a captured
+    launch counts nothing.
     """
     if patches.device.type == "cpu":
-        return fpca_conv_basis(patches, planes, tables, bn_offset, row_valid=row_valid)
+        return fpca_conv_basis(patches, planes, tables, bn_offset, row_valid=row_valid, n_rows=n_rows)
     dev = patches.device
     M, N = patches.shape
     C = bn_offset.shape[0]
@@ -337,9 +349,16 @@ def fpca_conv_cuda(
     _check("packed tables", tables.packed, (_P_SIZE,), dev)
     if row_valid is not None:
         _check("row_valid", row_valid, (M,), dev)
+    if n_rows is not None and (
+        n_rows.device != dev or n_rows.dtype != torch.int32 or n_rows.numel() != 1 or not n_rows.is_contiguous()
+    ):
+        raise ValueError(
+            f"n_rows: expected one contiguous int32 on {dev}, got {n_rows.dtype} "
+            f"{tuple(n_rows.shape)} on {n_rows.device}"
+        )
     out = torch.empty((M, C), dtype=torch.float32, device=dev)
     chosen = design(patches, tables, C)
-    err = _launch(patches, planes, tables, bn_offset, row_valid, out, tensor_cores=chosen == "wgmma")
+    err = _launch(patches, planes, tables, bn_offset, row_valid, out, tensor_cores=chosen == "wgmma", n_rows=n_rows)
     if err:
         raise RuntimeError(f"fpca_conv kernel ({chosen}) launch failed with CUDA error {err}")
     fpca_conv_cuda.launches += 1
@@ -347,7 +366,7 @@ def fpca_conv_cuda(
     return out
 
 
-def _launch(patches, planes, tables, bn_offset, row_valid, out, *, tensor_cores: bool) -> int:
+def _launch(patches, planes, tables, bn_offset, row_valid, out, *, tensor_cores: bool, n_rows=None) -> int:
     """One launch of the C entry point on checked inputs; returns its CUDA
     error code (0 on success) and counts nothing.  :func:`fpca_conv_cuda`
     is the caller; a script may call it to time one design beside the
@@ -358,6 +377,7 @@ def _launch(patches, planes, tables, bn_offset, row_valid, out, *, tensor_cores:
             patches.data_ptr(), planes["w_pows"].data_ptr(), planes["cs"].data_ptr(),
             planes["aw"].data_ptr(), bn_offset.data_ptr(),
             None if row_valid is None else row_valid.data_ptr(),
+            None if n_rows is None else n_rows.data_ptr(),
             tables.packed.data_ptr(), tables.packed_host.ctypes.data, out.data_ptr(),
             M, N, out.shape[1], planes["aw"].shape[1], tables.model.n_buckets, int(tensor_cores),
             torch.cuda.current_stream(patches.device).cuda_stream,

@@ -11,9 +11,11 @@ the flattened window list into a static bucket of ``m_bucket`` rows before
 the kernel runs, so skipped windows never execute.  Results scatter back to
 the dense ``(B, h_o, w_o, c_o)`` grid with exact zeros in skipped slots;
 kept windows are bit-identical to the dense evaluation because every row of
-the basis-bank math is row-independent.  When the bucket would not shrink
-the matrix (``m_bucket >= M``) the dense fallback runs with a post-hoc zero
-mask instead.
+the basis-bank math is row-independent.  The compaction index is built on
+the device (:func:`compact_rows`) and the kernel reads the kept count from
+the device (``n_rows``), walking only the kept rows: nothing in the call
+waits on the host, so a call with ``m_bucket = M`` can be captured in a
+CUDA graph and replayed for any mask (the streaming segments do so).
 
 ``transfer="int8"`` (``precision="int8"`` model programs on the ``basis``
 backend) replaces the sigmoid gate bank by one gather from a 256-entry
@@ -48,6 +50,8 @@ __all__ = [
     "freeze_model",
     "thaw_model",
     "window_bucket",
+    "segment_bucket",
+    "compact_rows",
     "StickyBucket",
 ]
 
@@ -99,6 +103,37 @@ def window_bucket(n_keep: int, m_total: int) -> int:
     """Static row-bucket size for ``n_keep`` kept windows out of ``m_total``:
     the next power of two, capped at ``m_total`` (dense fallback there)."""
     return min(1 << (max(n_keep, 1) - 1).bit_length(), m_total)
+
+
+def segment_bucket(kept_counts, m_total: int, keyframes=None) -> int:
+    """Compacted-row bucket for the next segment, from the per-tick kept
+    counts of the last one (the between-segment half of the region-skip
+    servo).  Keyframe ticks are held out (they keep everything by
+    construction), and so are all-skipped ticks; a segment with no
+    informative tick yields the minimal bucket of 1."""
+    kept = np.asarray(kept_counts, np.int64).reshape(-1)
+    if keyframes is not None:
+        kf = np.asarray(keyframes, bool).reshape(-1)
+        kept = kept[~kf]
+    kept = kept[kept > 0]
+    if kept.size == 0:
+        return 1
+    return window_bucket(int(kept.max()), int(m_total))
+
+
+def compact_rows(keep: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kept rows of a flat ``(M,)`` keep mask, in order, without leaving
+    the device: ``(idx (M,) int64, n_keep (1,) int32)`` where ``idx[:n_keep]``
+    are the kept row numbers ascending (what ``nonzero`` gives) and the rest
+    are 0.  Built from a prefix sum and a scatter, so nothing waits on the
+    host: kept row r goes to slot ``cumsum[r] - 1``, every skipped row to a
+    spare slot M that is dropped."""
+    M = keep.shape[0]
+    pos = torch.cumsum(keep.to(torch.int32), 0, dtype=torch.int32)
+    slot = torch.where(keep, pos.long() - 1, torch.full_like(pos, M, dtype=torch.long))
+    idx = torch.zeros(M + 1, dtype=torch.long, device=keep.device)
+    idx.scatter_(0, slot, torch.arange(M, device=keep.device))
+    return idx[:M], pos[-1:]
 
 
 class StickyBucket:
@@ -217,29 +252,24 @@ def _fpca_conv_impl(
     flat = patches.reshape(M, N).contiguous()
     planes = weight_planes(w_pos.T, w_neg.T, tables)
 
-    idx = row_valid = keep = None
+    idx = n_rows = None
     if window_mask is not None:
         if m_bucket is None:
             raise ValueError("window_mask requires a static m_bucket (see window_bucket())")
-        keep = window_mask.reshape(-1).to(torch.bool)
-        if m_bucket < M:
-            # compact: only kept windows reach the kernel (row-independent
-            # math, so kept rows stay bit-identical to a dense evaluation);
-            # padding rows gather window 0 and come out as exact zeros
-            idx = torch.nonzero_static(keep, size=m_bucket, fill_value=0)[:, 0]
-            n_keep = keep.sum()
-            row_valid = (torch.arange(m_bucket, device=flat.device) < n_keep).float()
-            flat = flat[idx]
+        # compact: only kept windows reach the kernel (row-independent math,
+        # so kept rows stay bit-identical to a dense evaluation); the kernel
+        # walks the first n_rows (the kept count, on the device) of the
+        # m_bucket rows, and the padding rows (window 0) come out as zeros
+        idx, n_rows = compact_rows(window_mask.reshape(-1).to(torch.bool))
+        idx = idx[: min(m_bucket, M)]
+        flat = flat[idx]
 
     kw = {} if lut is None else {"lut": lut}
-    counts = _IMPLS[impl](flat, planes, tables, bn_offset.float().contiguous(), row_valid=row_valid, **kw)
-    if keep is not None:
-        if idx is not None:
-            # scatter-add back: padding rows are exact zeros, so the
-            # duplicate fill index 0 adds nothing
-            counts = torch.zeros((M, counts.shape[-1]), device=counts.device).index_add_(0, idx, counts)
-        else:
-            counts = counts * keep[:, None].float()
+    counts = _IMPLS[impl](flat, planes, tables, bn_offset.float().contiguous(), n_rows=n_rows, **kw)
+    if idx is not None:
+        # scatter-add back: rows past the kept count are exact zeros, so
+        # the duplicate fill index 0 adds nothing
+        counts = torch.zeros((M, counts.shape[-1]), device=counts.device).index_add_(0, idx, counts)
     return counts.reshape(B, h_o, w_o, -1)
 
 

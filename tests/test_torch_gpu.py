@@ -31,6 +31,12 @@ Tolerances, each kernel against its plain PyTorch version on the card:
   equal to the host's bit for bit (integer sums below 2**24 are exact in
   f32 in any order); ``fused_patched_logits`` equal to ``patched_logits``
   row by row.
+- fpca_conv with a device row count ``n_rows``: rows below it within the
+  fpca limit of the plain version and bit-equal to the launch without it
+  (rows are independent), rows at or past it exact zeros, for both designs.
+- segments: a segment replayed from its CUDA graph equal to the same body
+  run eagerly on the card, and to per-tick ``stream()``, bit for bit (the
+  same kernels on the same inputs, in the same order).
 """
 
 from __future__ import annotations
@@ -59,6 +65,7 @@ from repro_torch.kernels.fpca_conv.kernel import (
     fpca_conv_cuda,
     weight_planes,
 )
+from repro_torch.kernels.fpca_conv import kernel as fpca_kernel
 from repro_torch.kernels.fpca_conv.kernel import design as fpca_design
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_cuda
@@ -274,6 +281,119 @@ def test_compiled_model_launches_the_kernel_and_matches_basis(cuda, model):
     diff = (counts - want).abs()
     assert float(diff.max()) <= 1.0 and float((diff > 0).float().mean()) < 0.05
     assert logits.shape == (5, 3) and bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.parametrize("tensor_cores", [True, False])
+@pytest.mark.parametrize("n_rows", [0, 1, 127, 128, 129, 576])
+def test_kernel_walks_the_row_count_it_reads_from_the_device(cuda, model, tensor_cores, n_rows):
+    """M = 576 (fpca_cnn at batch 1).  Rows below the device count equal the
+    launch without a count bit for bit and the plain version within the
+    fpca limit; rows at or past it are exact zeros; a zero count gives all
+    zeros.  The SIMT design is launched through the C entry point."""
+    m = 576
+    patches, w_pos, w_neg, bn = _inputs(m, 75, 8, cuda, seed=n_rows)
+    tables = conv_tables(model, ADCConfig(), 75, cuda)
+    planes = weight_planes(w_pos, w_neg, tables)
+    count = torch.tensor([n_rows], dtype=torch.int32, device=cuda)
+    full = torch.empty((m, 8), device=cuda)
+    got = torch.full((m, 8), float("nan"), device=cuda)
+    assert fpca_kernel._launch(patches, planes, tables, bn, None, full, tensor_cores=tensor_cores) == 0
+    assert fpca_kernel._launch(patches, planes, tables, bn, None, got, tensor_cores=tensor_cores,
+                               n_rows=count) == 0
+    want = fpca_conv_basis(patches, planes, tables, bn, n_rows=count)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:n_rows], full[:n_rows])
+    assert torch.equal(got[n_rows:], torch.zeros_like(got[n_rows:]))
+    assert torch.equal(want[n_rows:], torch.zeros_like(want[n_rows:]))
+    diff = (got - want).abs()
+    assert float(diff.max()) <= 1.0 and float((diff > 0).float().mean()) < 0.05
+    if tensor_cores:
+        before = fpca_conv_cuda.launches
+        assert torch.equal(fpca_conv_cuda(patches, planes, tables, bn, n_rows=count), got)
+        assert fpca_conv_cuda.launches == before + 1
+
+
+def _segment_model(model, cuda, precision="f32"):
+    spec = fpca.FPCASpec(image_h=48, image_w=48, out_channels=8, kernel=5, stride=5)
+    gate = fpca.DeltaGateConfig(threshold=0.02, hysteresis=0, keyframe_interval=7)
+    prog = fpca.FPCAModelProgram(frontend=fpca.FPCAProgram(spec=spec, gate=gate), precision=precision,
+                                 head=(fpca.DenseSpec(16, activation="relu"), fpca.DenseSpec(3)))
+    g = torch.Generator().manual_seed(3)
+    kernel = torch.randn(prog.frontend.kernel_shape, generator=g) * 0.3
+    return fpca.compile(prog, device=cuda, weights=kernel, head_params=prog.init_head(g, device=cuda), model=model)
+
+
+def _scene(k: int, seed: int = 0) -> torch.Tensor:
+    """48x48 frames: a moving square over a fixed background, two repeated
+    (all-skipped) stretches."""
+    g = torch.Generator().manual_seed(seed)
+    base = torch.rand((48, 48, 3), generator=g)
+    frames = base.repeat(k, 1, 1, 1)
+    for t in range(k):
+        c = (5 * t) % 40
+        frames[t, c:c + 8, c:c + 8] = 1.0
+    frames[4:7] = frames[3]
+    frames[k - 2:] = frames[k - 3]
+    return frames
+
+
+@pytest.mark.parametrize("early_exit,precision", [(None, "f32"), (2, "f32"), (None, "int8")])
+def test_captured_segment_equals_its_eager_run_and_the_per_tick_loop(cuda, model, early_exit, precision):
+    """The graph replay of a gated model segment (f32 and int8 heads)
+    against the same body run eagerly on the card and against
+    ``stream()``: counts, masks, logits and the carry bit for bit; the
+    first call captures, later calls replay."""
+    from repro_torch.fpca.backends import _CapturedSegment
+
+    m = _segment_model(model, cuda, precision)
+    frames = _scene(12)
+    seg = m.run_segment(frames, early_exit=early_exit)
+    key = next(k for k in m.cache_info(verbose=True).resident if "segment" in k)
+    run = m._cache._entries[key].__wrapped__
+    assert isinstance(run, _CapturedSegment) and run.capture_ms is not None
+    again = m.run_segment(frames, early_exit=early_exit)
+    assert torch.equal(again.counts, seg.counts) and torch.equal(again.logits, seg.logits)
+    state = m._fresh_segment_state(m.program.gate.hysteresis, True)
+    g = m.program.gate
+    gate_args = (torch.tensor(g.threshold, device=cuda), torch.tensor(g.hysteresis, dtype=torch.int32, device=cuda),
+                 torch.tensor(g.keyframe_interval, dtype=torch.int32, device=cuda))
+    outs, carry = run._body(frames.to(cuda), m.kernel, m.bn_offset, m.head_params, gate_args,
+                            state.carry(True, cuda))
+    assert torch.equal(outs["counts"], seg.counts) and torch.equal(outs["logits"], seg.logits)
+    assert torch.equal(outs["kept"].cpu().long(), torch.as_tensor(seg.kept_windows))
+    for a, b in zip(carry, (seg.state.has_prev, seg.state.prev_eff, seg.state.age, seg.state.frame_idx,
+                            seg.state.eff, seg.state.logits)):
+        assert torch.equal(a, b)
+    ticks = list(m.stream(frames[: seg.ticks], controller=None))
+    assert len(ticks) == seg.ticks == (12 if early_exit is None else seg.ticks)
+    for t, r in enumerate(ticks):
+        assert (seg.counts[t].cpu().numpy() == r.counts).all()
+        assert (seg.block_masks[t] == r.block_mask).all()
+        assert (seg.logits[t].cpu().numpy() == r.logits).all()
+    if early_exit is not None:
+        assert seg.ticks < 12 and (seg.kept_windows[seg.ticks - 2: seg.ticks] == 0).all()
+        assert torch.equal(seg.counts[seg.ticks:], torch.zeros_like(seg.counts[seg.ticks:]))
+
+
+def test_segment_reprogram_and_servo_step_build_nothing(cuda, model):
+    """A weight rewrite and a new threshold between segments replay the same
+    graph, and the replay follows the new values (equal to a fresh handle's
+    first segment under them)."""
+    m = _segment_model(model, cuda)
+    frames = _scene(8, seed=1)
+    first = m.run_segment(frames, m_bucket=16)
+    misses = m.cache_info().misses
+    g = torch.Generator().manual_seed(9)
+    kernel = torch.randn(m.program.kernel_shape, generator=g) * 0.3
+    m.reprogram(kernel)
+    gate = dataclasses.replace(m.program.gate, threshold=0.05)
+    seg = m.run_segment(frames, m_bucket=16, gate=gate)
+    assert m.cache_info().misses == misses
+    fresh = _segment_model(model, cuda)
+    fresh.reprogram(kernel)
+    want = fresh.run_segment(frames, m_bucket=16, gate=gate)
+    assert torch.equal(seg.counts, want.counts) and torch.equal(seg.logits, want.logits)
+    assert not torch.equal(seg.counts, first.counts)
 
 
 # ---------------------------------------------------------------------------
