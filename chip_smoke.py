@@ -51,6 +51,25 @@ then, through the same kernel, the model zoo and int8 head serving:
    rows the kernel walked beside ``rows_executed``, and the kernel's time at
    M = 576 with device row counts 576, 58 and 0;
 
+7d. serves multi-camera traffic through ``repro_torch.serving``: an
+   ``FPCAPipeline`` with dense_5x5 (the fpca_cnn frontend, twice, under two
+   weight draws), overlap_3x3 (N = 27), binned_lowpower, fpca_cnn and
+   fpca_detect serves a seeded mix of 256 requests (10% with a block mask)
+   with cross-config batching off and on: one fpca launch per group or
+   merged group, every result against its config's own handle bit for bit,
+   merged against unmerged (the merged C = 32 group takes the SIMT design:
+   bit for bit against SIMT launches, within the fpca limit against the
+   tensor-core ones); then 16 fpca_cnn cameras (12 moving) and two fan-out
+   cameras (C = 16: per-config gates; an event tap) on a ``StreamServer``,
+   64 ticks at depth 1 and 2, each camera against its own ``stream()`` bit
+   for bit, ms per tick and the busy share; the stacked C = 16 launch
+   against its plain version and timed beside two C = 8 launches; and the
+   same cameras under a ``FleetController`` (budget 2.4, floor 0.02,
+   target 0.15), 64 ticks through ``run`` and 64 through ``serve_segments``
+   (K = 32) interleaved on one shared graph, each segment against the
+   camera's own ``run_segment`` bit for bit, the allocation gauges summing
+   to the budget, ``assert_reconciled`` and ``render_fleet_report``;
+
 then the language-model serving path (``repro_torch.launch.serve``):
 
 8. initialises zamba2-7b at full width (d_model 3584, 81 Mamba2 layers, one
@@ -106,6 +125,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -117,7 +137,7 @@ from repro_torch import fpca  # noqa: E402
 from repro_torch.configs import fpca_cnn  # noqa: E402
 from repro_torch.core.curvefit import fit_bucket_model  # noqa: E402
 from repro_torch.core.fpca_sim import encode_weights, extract_windows  # noqa: E402
-from repro_torch.core.mapping import active_window_mask  # noqa: E402
+from repro_torch.core.mapping import active_window_mask, output_dims  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.fpca_conv import kernel as fpca_kernel  # noqa: E402
 from repro_torch.kernels.fpca_conv.kernel import (  # noqa: E402
@@ -181,6 +201,18 @@ STREAM_ARCHS, STREAM_K, STREAM_SEGMENTS, STREAM_EARLY_EXIT = ("fpca_cnn", "fpca_
 # the fpca kernel's rows at M = 576 (a batch-1 tick), timed with these
 # device row counts: all, a tick keeping ~10%, none
 STREAM_N_ROWS = (576, 58, 0)
+# multi-camera serving: a seeded mix of PIPE_REQUESTS requests over six
+# registered names, PIPE_MASKED of them with a block mask, serve timed over
+# PIPE_TIMED runs; FLEET_CAMERAS fpca_cnn cameras (the first FLEET_MOVING
+# moving) and two fan-out cameras, FLEET_TICKS ticks through run() and as
+# many through segments of FLEET_SEGMENT ticks, under one fleet budget
+PIPE_REQUESTS, PIPE_MASKED, PIPE_TIMED = 256, 0.10, 10
+FLEET_CAMERAS, FLEET_MOVING, FLEET_TICKS, FLEET_SEGMENT = 16, 12, 64, 32
+FLEET_CONFIG, FLEET_TARGET = {"budget": 2.4, "floor": 0.02, "rebalance_ticks": 8}, 0.15
+# the server's warm-up ticks (a keyframe and deltas), and the ticks over
+# which the fan-out is held against each config served alone (a keyframe
+# period and a refresh)
+SERVER_WARM, FAN_SOLO_TICKS = 4, 32
 # int8 logits card vs host from the same counts and quantised parameters,
 # as a share of max|logit|: every stage's int32 accumulators agree exactly;
 # the f32 ops between stages (an avg-pool summed in another order) can move
@@ -465,9 +497,30 @@ def main() -> None:
     by_path.update(int8_phase(dev, smi, bucket_model, requests))
     streaming = stream_phase(dev, smi, bucket_model)
     by_path.update(streaming.pop("launches"))
+    fpca_entry["streaming"] = streaming
+    t_serving = time.perf_counter()
+    step = Laps()
+    models = {spec.n_active_pixels: bucket_model, 27: fit_bucket_model(n_pixels=27, device=dev)}
+    step("N = 27 bucket model")
+    serving = {"pipeline": pipeline_phase(dev, smi, models)}
+    step("pipeline")
+    cams = camera_frames(2 * FLEET_TICKS)
+    step("camera frames")
+    serving["server"] = server_phase(dev, smi, models, cams)
+    step("server")
+    serving["stacked_launch"] = stacked_launch_check(dev, smi, bucket_model, cams)
+    step("stacked launch")
+    serving["fleet"] = fleet_phase(dev, smi, models, cams)
+    step("fleet")
+    for part in ("pipeline", "server", "fleet"):
+        by_path.update(serving[part].pop("launches"))
     fpca_entry["launches"] = sum(by_path.values())
     fpca_entry["launches_by_path"] = by_path
-    fpca_entry["streaming"] = streaming
+    fpca_entry["serving"] = serving
+    del cams
+    serving["seconds_by_step"] = step.report("multi-camera serving")
+    print(f"multi-camera serving phases: {time.perf_counter() - t_serving:.1f} s (target: about 60 s more than "
+          "the script without them)")
     gc.collect()
     torch.cuda.empty_cache()
     flash_entry, ssd_entry = lm_phase(dev, smi)
@@ -486,16 +539,34 @@ def profile_request(model, x: torch.Tensor) -> tuple[float, list[str]]:
     return profile_device(lambda: model.run(x), runs=5)
 
 
-def device_events(fn, runs: int) -> list:
+class DeviceOp(NamedTuple):
+    """One device-side op name in a profile: its launches and its summed
+    device time in microseconds (as ``key_averages()`` reports them)."""
+
+    key: str
+    count: int
+    device_time_total: float
+
+
+def device_events(fn, runs: int) -> list[DeviceOp]:
     """The device-side events (kernels, memcpy/memset; not the host ops that
-    launch them) of ``runs`` calls of ``fn`` under torch.profiler, by name."""
+    launch them) of ``runs`` calls of ``fn`` under torch.profiler, by name.
+    They are summed straight from the profiler's raw events: building its
+    Python event tree (``key_averages()``) takes tens of seconds over the
+    ~10^5 kernels of a few hundred replayed segment ticks."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    return [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA") and e.device_time_total > 0]
+    by_name: dict[str, list] = {}
+    for e in prof.profiler.kineto_results.events():
+        if str(e.device_type()).endswith("CUDA") and not getattr(e, "is_hidden_event", lambda: False)():
+            agg = by_name.setdefault(e.name(), [0, 0])
+            agg[0] += 1
+            agg[1] += e.duration_ns()
+    return [DeviceOp(k, n, ns / 1e3) for k, (n, ns) in by_name.items() if ns > 0]
 
 
 def profile_device(fn, runs: int) -> tuple[float, list[str]]:
@@ -937,6 +1008,587 @@ def _stream_cnn_checks(dev, smi, model, prog, kernel, bn, head, bucket_model, fr
     print(f"fpca_conv at M={patches.shape[0]} on {smi}, by device row count: "
           + ", ".join(f"n_rows={k} {v:.4f} ms" for k, v in by_count.items()))
     return {"n_rows_ms": by_count, "cuda_vs_basis_max_err": err, "cuda_vs_basis_flip_share": flips}
+
+
+# ---------------------------------------------------------------------------
+# multi-camera serving: the batch pipeline, the stream server and the fleet
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def simt_only():
+    """Every fpca launch inside takes the SIMT design (the check a stacked
+    launch of more than TC_MAX_CHANNELS channels is held to: the two designs
+    round differently, so a stacked SIMT launch equals solo launches bit for
+    bit only when those take the SIMT design too)."""
+    saved = fpca_kernel.TC_MAX_CHANNELS
+    fpca_kernel.TC_MAX_CHANNELS = 0
+    try:
+        yield
+    finally:
+        fpca_kernel.TC_MAX_CHANNELS = saved
+
+
+def _weights(prog, seed: int, dev: torch.device) -> tuple:
+    """Seeded NVM planes and BN offsets (and head parameters for a model)."""
+    model = isinstance(prog, fpca.FPCAModelProgram)
+    g = torch.Generator().manual_seed(seed)
+    kernel = torch.randn((prog.frontend if model else prog).kernel_shape, generator=g) * 0.3
+    bn = torch.randint(0, 24, (prog.out_channels,), generator=g).float()
+    return kernel, bn, (prog.init_head(g, device=dev) if model else None)
+
+
+def pipeline_configs(dev: torch.device) -> list[tuple]:
+    """The registered configurations: (name, program, kernel, bn, head)."""
+    from repro_torch.core.mapping import FPCASpec
+
+    overlap = FPCASpec(image_h=120, image_w=120, out_channels=8, kernel=3, stride=2, max_kernel=3)
+    binned = FPCASpec(image_h=120, image_w=120, out_channels=8, kernel=5, stride=5, binning=2)
+    out = []
+    for i, (name, spec) in enumerate((("dense_5x5", fpca_cnn.FRONTEND_SPEC), ("dense_5x5_b", fpca_cnn.FRONTEND_SPEC),
+                                      ("overlap_3x3", overlap), ("binned_lowpower", binned))):
+        prog = fpca.FPCAProgram(spec=spec)
+        out.append((name, prog) + _weights(prog, SEED + 40 + i, dev))
+    for i, arch in enumerate(("fpca_cnn", "fpca_detect")):
+        prog = fpca.build_model({"arch": arch})
+        out.append((arch, prog) + _weights(prog, SEED + 50 + i, dev))
+    return out
+
+
+def make_pipeline(dev: torch.device, models: dict, configs: list, **kw):
+    from repro_torch.serving import FPCAPipeline
+
+    pipe = FPCAPipeline(models, device=dev, cache_capacity=64, **kw)
+    for name, prog, kernel, bn, head in configs:
+        pipe.register(name, prog, kernel, bn, head_params=head)
+    check(pipe.backend == "cuda", f"the pipeline's default backend on the card is {pipe.backend}")
+    return pipe
+
+
+def _host_out(x) -> torch.Tensor:
+    return _raw(x).detach()
+
+
+def pipeline_phase(dev: torch.device, smi: str, models: dict) -> dict:
+    """Serve a seeded mix of PIPE_REQUESTS requests over the six registered
+    names through ``FPCAPipeline.serve``, with cross-config batching off and
+    on; check launches and designs per group, every result against its
+    config's own ``fpca.compile`` handle on the same group batch (bit for
+    bit), merged against unmerged (bit for bit where the designs agree; the
+    merged group's stacked SIMT launch against unmerged SIMT launches bit
+    for bit and against the served tensor-core ones within the fpca limit);
+    time serve (median of PIPE_TIMED)."""
+    from repro_torch.serving import FrontendRequest
+
+    configs = pipeline_configs(dev)
+    by_name = {c[0]: c for c in configs}
+    rng = np.random.default_rng(SEED + 60)
+    g = torch.Generator().manual_seed(SEED + 61)
+    frames = torch.rand((PIPE_REQUESTS, 120, 120, 3), generator=g).to(dev)
+    names = [c[0] for c in configs]
+    reqs = []
+    for i in range(PIPE_REQUESTS):
+        name = names[int(rng.integers(len(names)))]
+        spec = by_name[name][1].spec
+        mask = None
+        if rng.random() < PIPE_MASKED:
+            bh, bw = -(-spec.eff_h // spec.skip_block), -(-spec.eff_w // spec.skip_block)
+            mask = rng.random((bh, bw)) < 0.4
+        reqs.append(FrontendRequest(name, frames[i], mask))
+    out: dict = {"launches": {}}
+    served = {}
+    for cross in (False, True):
+        pipe = make_pipeline(dev, models, configs, cross_config_batching=cross)
+        pipe.serve(reqs)                     # warm-up: builds, first-call costs
+        torch.cuda.synchronize()
+        groups = pipe.group_requests(reqs)
+        _reset_fpca_counts()
+        results = pipe.serve(reqs)
+        torch.cuda.synchronize()
+        launched, designs = fpca_conv_cuda.launches, dict(fpca_conv_cuda.designs)
+        n_launches = 3 if cross else len(groups)
+        want_designs = {"wgmma": 2, "simt": 1} if cross else {"wgmma": len(groups), "simt": 0}
+        check(launched == n_launches and designs == want_designs,
+              f"pipeline (cross_config_batching={cross}): {launched} fpca launches by design {designs}, expected "
+              f"one a group or merged group, {want_designs}")
+        times = []
+        for _ in range(PIPE_TIMED):
+            t0 = time.perf_counter()
+            pipe.serve(reqs)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        label = "merged" if cross else "unmerged"
+        out[f"serve_ms_{label}"] = statistics.median(times)
+        out[f"designs_{label}"] = designs
+        out["launches"][f"pipeline serve ({label})"] = launched
+        served[cross] = results
+        print(f"pipeline serve ({label}) on {smi}: {PIPE_REQUESTS} requests in {len(groups)} config groups, "
+              f"{launched} fpca launches by design {designs}; stats {pipe.stats.as_dict()}; "
+              f"serve {out[f'serve_ms_{label}']:.3f} ms (host clock, median of {PIPE_TIMED}), "
+              f"{PIPE_REQUESTS / out[f'serve_ms_{label}'] * 1e3:.0f} requests/s")
+        if not cross:
+            # every result against the config's own handle on the same batch
+            cache = fpca.ExecutableCache(64)
+            for name, idxs in groups.items():
+                _, prog, kernel, bn, head = by_name[name]
+                own = fpca.compile(prog, device=dev, weights=kernel, bn_offset=bn, head_params=head, cache=cache,
+                                   model=models[prog.spec.n_active_pixels])
+                wk = None
+                if any(reqs[i].block_mask is not None for i in idxs):
+                    wk = np.stack([active_window_mask(prog.spec, reqs[i].block_mask) if reqs[i].block_mask is not None
+                                   else np.ones(output_dims(prog.spec), bool) for i in idxs])
+                want = _host_out(own.run(frames[idxs], window_keep=wk))
+                for j, i in enumerate(idxs):
+                    check(torch.equal(_host_out(results[i]), want[j]),
+                          f"pipeline {name} request {i}: differs from its own compiled handle")
+            print(f"pipeline (unmerged): all {PIPE_REQUESTS} results == their configs' own fpca.compile handles "
+                  "on the same group batches, bit for bit")
+    # merged against unmerged
+    pipe = make_pipeline(dev, models, configs)
+    merged_names = {n for n, c in by_name.items() if c[1].spec == fpca_cnn.FRONTEND_SPEC}
+    with simt_only():
+        simt_results = pipe.serve(reqs)
+    merged_counts, unmerged_counts = [], []
+    for i, r in enumerate(reqs):
+        a, b = _host_out(served[True][i]), _host_out(served[False][i])
+        if r.config in merged_names:
+            check(torch.equal(a, _host_out(simt_results[i])),
+                  f"pipeline request {i} ({r.config}): merged differs from unmerged SIMT serving")
+            if not isinstance(by_name[r.config][1], fpca.FPCAModelProgram):
+                merged_counts.append(a)
+                unmerged_counts.append(b)
+        else:
+            check(torch.equal(a, b), f"pipeline request {i} ({r.config}): merged differs from unmerged")
+    err, flips = count_diff(torch.stack(merged_counts), torch.stack(unmerged_counts))
+    check(err <= COUNT_TOL and flips < FLIP_TOL,
+          f"pipeline: merged (SIMT) counts {err} off the unmerged tensor-core ones, flip share {flips}")
+    out["merged_vs_unmerged_max_err"], out["merged_vs_unmerged_flip_share"] = err, flips
+    print(f"pipeline merged == unmerged bit for bit for overlap_3x3 and binned_lowpower; the merged group "
+          f"({sorted(merged_names)}, C = 32, SIMT design) == unmerged SIMT serving bit for bit, and its counts "
+          f"vs the unmerged tensor-core ones: max|Δcount| {err}, flip share {flips:.3e} (fpca limit "
+          f"{COUNT_TOL}, {FLIP_TOL})")
+    return out
+
+
+def camera_frames(n_ticks: int) -> dict:
+    """FLEET_CAMERAS fpca_cnn cameras (the first FLEET_MOVING moving, the
+    rest static) and the two fan-out cameras: ``{stream_id: (T, 120, 120,
+    3)}`` on the host."""
+    cams = {}
+    for i in range(FLEET_CAMERAS):
+        video = SyntheticMovingObject((120, 120), seed=i, speed=0.17)
+        if i < FLEET_MOVING:
+            cams[f"cam{i}"] = np.stack([video.frame_at(t) for t in range(n_ticks)])
+        else:
+            cams[f"cam{i}"] = np.repeat(video.frame_at(0)[None], n_ticks, axis=0)
+    for j, sid in enumerate(("fan", "fan_ev")):
+        video = SyntheticMovingObject((120, 120), seed=FLEET_CAMERAS + j, speed=0.17)
+        cams[sid] = np.stack([video.frame_at(t) for t in range(n_ticks)])
+    return cams
+
+
+FAN = ("dense_5x5", "dense_5x5_b")
+
+
+def attach_cameras(target, server) -> None:
+    """The cameras on a server (``target`` is the server or a
+    FleetController over it): fpca_cnn cameras, one fan-out camera with
+    per-config gates (and per-config servos on a servoed server), one
+    shared-gate fan-out camera with an event tap."""
+    gate = fpca.DeltaGateConfig()
+    for i in range(FLEET_CAMERAS):
+        target.add_stream(f"cam{i}", "fpca_cnn")
+    ctl = None if server.controller is None else {n: server.controller for n in FAN}
+    target.add_stream("fan", FAN, gate={n: gate for n in FAN}, controller=ctl)
+    target.add_stream("fan_ev", FAN, events=True)
+
+
+def _run_ticks(target, cams: dict, ticks: range) -> tuple[list, float]:
+    """Serve ``ticks`` of every camera through ``target.run``; returns the
+    flat results and the wall milliseconds (host clock, ends synchronised)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = [r for rs in target.run({sid: f[t] for sid, f in cams.items()} for t in ticks) for r in rs]
+    torch.cuda.synchronize()
+    return results, (time.perf_counter() - t0) * 1e3
+
+
+def _same_results(a: list, b: list, what: str) -> None:
+    check(len(a) == len(b), f"{what}: {len(a)} results against {len(b)}")
+    for x, y in zip(a, b):
+        check((x.stream_id, x.frame_idx, x.config, x.kept_windows) == (y.stream_id, y.frame_idx, y.config, y.kept_windows)
+              and bool((x.counts == y.counts).all())
+              and (x.block_mask is None) == (y.block_mask is None)
+              and (x.block_mask is None or bool((x.block_mask == y.block_mask).all()))
+              and (x.logits is None) == (y.logits is None)
+              and (x.logits is None or bool((x.logits == y.logits).all())),
+              f"{what}: {x.stream_id}/{x.config} tick {x.frame_idx} differs")
+        if x.events is not None or y.events is not None:
+            check(x.events is not None and y.events is not None
+                  and bool((x.events.coords == y.events.coords).all())
+                  and bool((x.events.polarity == y.events.polarity).all()),
+                  f"{what}: {x.stream_id} tick {x.frame_idx}: event packets differ")
+
+
+def server_phase(dev: torch.device, smi: str, models: dict, cams: dict) -> dict:
+    """The cameras on a plain StreamServer (default gate, no servo): a
+    SERVER_WARM-tick warm-up, then FLEET_TICKS ticks through ``run`` at depth
+    1 and 2 (bit for bit the same; the depth-2 run also splits its host time
+    by part), each under the profiler once more for the busy share; each
+    fpca_cnn camera against its own handle's ``stream()`` bit for bit, the
+    fan-out's per-config results over FAN_SOLO_TICKS ticks against each
+    config served alone (SIMT: bit for bit; tensor-core: within the fpca
+    limit); launches per tick per group; the gate's batched call against
+    the solo one on the card."""
+    from repro_torch.serving import StreamServer
+
+    configs = pipeline_configs(dev)
+    by_name = {c[0]: c for c in configs}
+    pipe = make_pipeline(dev, models, configs)
+    ticks = range(FLEET_TICKS)
+    n_streams = len(cams)
+    out: dict = {"launches": {}}
+    step = Laps()
+    warm = StreamServer(pipe)               # builds the executables and first-call costs
+    attach_cameras(warm, warm)
+    _run_ticks(warm, cams, range(SERVER_WARM))
+    step("warm-up")
+    runs = {}
+    for depth in (1, 2):
+        server = StreamServer(pipe, depth=depth)
+        attach_cameras(server, server)
+        b0, s0 = pipe.stats.batches, pipe.stats.launches_skipped
+        if depth == 2:
+            spent = split_host_time(pipe, server)
+        _reset_fpca_counts()
+        results, wall = _run_ticks(server, cams, ticks)
+        launched, designs = fpca_conv_cuda.launches, dict(fpca_conv_cuda.designs)
+        if depth == 2:
+            del pipe.run_config_batch           # the class's method again
+            spent["dispatch"] -= spent["launch"] + spent["heads"]
+            out["host_ms_per_tick"] = {k: v * 1e3 / len(ticks) for k, v in spent.items()}
+        batches, skipped = pipe.stats.batches - b0, pipe.stats.launches_skipped - s0
+        check(launched == batches and batches + skipped == 2 * len(ticks),
+              f"server depth {depth}: {launched} fpca launches, {batches} batches and {skipped} skipped "
+              f"for {len(ticks)} ticks of 2 config groups")
+        runs[depth] = results
+        out["launches"][f"server depth {depth}"] = launched
+        step(f"depth {depth}")
+        # the device's busy share: device time of the same ticks on a fresh
+        # server under the profiler over the wall time of the unprofiled run
+        def profiled(depth=depth):
+            srv = StreamServer(pipe, depth=depth)
+            attach_cameras(srv, srv)
+            _run_ticks(srv, cams, ticks)
+
+        _reset_fpca_counts()
+        events = device_events(profiled, runs=1)
+        device_ms = sum(e.device_time_total for e in events) / 1e3
+        by_design = fpca_kernel_launches(events)
+        check(by_design["wgmma"] + by_design["simt"] == fpca_conv_cuda.launches == launched,
+              f"server depth {depth}: the profiler saw {by_design} fpca kernels, the wrapper counted "
+              f"{fpca_conv_cuda.launches} there and {launched} in the timed run")
+        step(f"depth {depth} profiled")
+        out[f"depth{depth}"] = {
+            "ms_per_tick": wall / len(ticks),
+            "ms_per_stream_tick": wall / len(ticks) / n_streams,
+            "device_ms_per_tick": device_ms / len(ticks),
+            "busy": device_ms / wall,
+            "designs": designs,
+        }
+        print(f"server depth {depth} on {smi}: {len(ticks)} ticks of {n_streams} streams, {wall / len(ticks):.3f} ms "
+              f"per tick, {wall / len(ticks) / n_streams:.4f} ms per stream-tick (host clock); device "
+              f"{device_ms / len(ticks):.3f} ms per tick, busy {device_ms / wall:.1%}; fpca launches {launched} "
+              f"by design {designs} (the fpca_cnn group on wgmma, the C = 16 fan-out group on SIMT)")
+        for e in sorted(events, key=lambda e: e.device_time_total, reverse=True)[:6]:
+            print(f"  {e.key[:60]:60s} {e.device_time_total / 1e3 / len(ticks):.4f} ms/tick x{e.count // len(ticks)}")
+    _same_results(runs[2], runs[1], "server depth 2 vs depth 1")
+    print(f"server depth 2 on {smi}, host time a tick by part (host clock, the timed run): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in out["host_ms_per_tick"].items()))
+    # each fpca_cnn camera against its own handle's stream()
+    _, prog, kernel, bn, head = by_name["fpca_cnn"]
+    cache = fpca.ExecutableCache(64)
+    own = fpca.compile(prog, device=dev, weights=kernel, bn_offset=bn, head_params=head, cache=cache,
+                       model=models[75])
+    for i in range(FLEET_CAMERAS):
+        sid = f"cam{i}"
+        solo = list(own.stream(cams[sid][: len(ticks)], gate=fpca.DeltaGateConfig(), controller=None))
+        mine = [r for r in runs[2] if r.stream_id == sid]
+        for a, b in zip(mine, solo):
+            b.stream_id, b.config = a.stream_id, a.config
+        _same_results(mine, solo, f"server {sid} vs its own stream()")
+    step("solo stream()")
+    # the fan-out's per-config results against each config served alone
+    solo_ticks = range(FAN_SOLO_TICKS)
+    worst, fan_counts, solo_counts = 0.0, [], []
+    for design_ctx, exact in ((simt_only, True), (contextlib.nullcontext, False)):
+        for name in FAN:
+            with design_ctx():
+                srv = StreamServer(pipe)
+                srv.add_stream("fan", name)
+                srv.add_stream("fan_ev", name)
+                solo, _ = _run_ticks(srv, {k: cams[k] for k in ("fan", "fan_ev")}, solo_ticks)
+            mine = [r for r in runs[2] if r.stream_id in ("fan", "fan_ev") and r.config == name
+                    and r.frame_idx < len(solo_ticks)]
+            if exact:
+                for a, b in zip(mine, solo):
+                    b.events = a.events
+                _same_results(mine, solo, f"fan-out {name} vs {name} alone (SIMT)")
+            else:
+                check(len(mine) == len(solo), f"fan-out {name}: {len(mine)} results against {len(solo)} alone")
+                fan_counts += [torch.as_tensor(r.counts) for r in mine]
+                solo_counts += [torch.as_tensor(r.counts) for r in solo]
+                check(all(bool((a.block_mask == b.block_mask).all()) for a, b in zip(mine, solo)),
+                      f"fan-out {name}: masks differ from {name} alone")
+    worst, flips = count_diff(torch.stack(fan_counts), torch.stack(solo_counts))
+    check(worst <= COUNT_TOL and flips < FLIP_TOL,
+          f"fan-out: {worst} counts off the tensor-core solo launches, flip share {flips}")
+    out["fanout_vs_wgmma_solo_max_err"], out["fanout_vs_wgmma_solo_flip_share"] = worst, flips
+    step("fan-out solos")
+    print(f"server: the {FLEET_CAMERAS} fpca_cnn cameras == their own handle's stream() bit for bit (counts, masks, "
+          f"logits); depth 1 == depth 2 bit for bit; over {len(solo_ticks)} ticks the fan-out's per-config results "
+          f"== each config alone on SIMT bit for bit, and {worst} counts at most off the tensor-core solo launches, "
+          f"flip share {flips:.3e}")
+    # the gate's batched call against the solo one, on the card
+    from repro_torch.core import gating
+
+    kern = gating.host_gate_kernels(fpca_cnn.FRONTEND_SPEC, dev)
+    prev = torch.as_tensor(np.stack([cams[f"cam{i}"][0] for i in range(FLEET_CAMERAS)]), device=dev)
+    cur = torch.as_tensor(np.stack([cams[f"cam{i}"][1] for i in range(FLEET_CAMERAS)]), device=dev)
+    prev_eff = gating.effective_frame(prev, fpca_cnn.FRONTEND_SPEC)
+    effs, deltas = kern.step_batch(prev_eff, cur)
+    for i in range(FLEET_CAMERAS):
+        e, d = kern.step(prev_eff[i], cur[i])
+        check(torch.equal(e, effs[i]) and torch.equal(d, deltas[i]), "the batched gate differs from the solo gate")
+    print(f"gate: step_batch over {FLEET_CAMERAS} cameras == step per camera, bit for bit, on the card")
+    out["seconds_by_step"] = step.report("server phase")
+    return out
+
+
+class Laps:
+    """Host seconds each step of a phase took: ``laps(name)`` closes the
+    step that ran since the last call."""
+
+    def __init__(self):
+        self.seconds: dict = {}
+        self._t = time.perf_counter()
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[name] = now - self._t
+        self._t = now
+
+    def report(self, phase: str) -> dict:
+        print(f"{phase} seconds by step: " + ", ".join(f"{k} {v:.1f}" for k, v in self.seconds.items()))
+        return self.seconds
+
+
+def split_host_time(pipe, server) -> dict:
+    """Wrap the pipeline call (the fused launch and its host work), the
+    model heads, the realisation of results and the dispatch of ``server``
+    so that each adds its host seconds to the returned dict; the caller
+    deletes ``pipe.run_config_batch`` after the run and takes launch and
+    heads out of dispatch."""
+    spent = dict.fromkeys(("launch", "heads", "finalize", "dispatch"), 0.0)
+
+    def timed(part, fn):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[part] += time.perf_counter() - t0
+        return call
+
+    pipe.run_config_batch = timed("launch", pipe.run_config_batch)
+    server._model_head_pass = timed("heads", server._model_head_pass)
+    server._finalize = timed("finalize", server._finalize)
+    server._dispatch = timed("dispatch", server._dispatch)
+    return spent
+
+
+def stacked_launch_check(dev: torch.device, smi: str, bucket_model, cams: dict) -> dict:
+    """The fan-out's stacked C = 16 launch (SIMT design) against its plain
+    version, and timed beside two C = 8 tensor-core launches of the same
+    windows, at the windows of 2, 16 and 256 frames."""
+    configs = {c[0]: c for c in pipeline_configs(dev)}
+    spec = fpca_cnn.FRONTEND_SPEC
+    tables = conv_tables(bucket_model, fpca.ADCConfig(), spec.n_active_pixels, dev)
+    planes = {}
+    for name in FAN:
+        w_pos, w_neg = encode_weights(configs[name][2].to(dev), spec, fpca.WeightEncoding())
+        planes[name] = (weight_planes(w_pos.T, w_neg.T, tables), configs[name][3].to(dev))
+    kernel = torch.cat([configs[n][2] for n in FAN]).to(dev)
+    w_pos, w_neg = encode_weights(kernel, spec, fpca.WeightEncoding())
+    stacked = weight_planes(w_pos.T, w_neg.T, tables)
+    bn = torch.cat([configs[n][3] for n in FAN]).to(dev)
+    frames = torch.as_tensor(np.concatenate([f[:16] for f in cams.values()]), device=dev)
+    out = {}
+    for b in (2, 16, 256):
+        p = extract_windows(frames[:b], spec).reshape(-1, spec.n_active_pixels).contiguous()
+        check(fpca_kernel.design(p, tables, 16) == "simt" and fpca_kernel.design(p, tables, 8) == "wgmma",
+              "the stacked launch must take SIMT and each half wgmma")
+        got = fpca_conv_cuda(p, stacked, tables, bn)
+        want = fpca_conv_basis(p, stacked, tables, bn)
+        halves = [fpca_conv_cuda(p, planes[n][0], tables, planes[n][1]) for n in FAN]
+        torch.cuda.synchronize()
+        err, flips = count_diff(got, want)
+        err_h, _ = count_diff(got, torch.cat(halves, -1))
+        check(err <= COUNT_TOL and flips < FLIP_TOL, f"stacked C = 16 launch at M={p.shape[0]}: {err} counts, "
+              f"flips {flips} off its plain version")
+        check(err_h <= COUNT_TOL, f"stacked C = 16 launch at M={p.shape[0]}: {err_h} counts off the two wgmma launches")
+        simt_ms = time_cuda(lambda: fpca_conv_cuda(p, stacked, tables, bn))
+        two_ms = time_cuda(lambda: [fpca_conv_cuda(p, planes[n][0], tables, planes[n][1]) for n in FAN])
+        plain_ms = time_cuda(lambda: fpca_conv_basis(p, stacked, tables, bn))
+        out[int(p.shape[0])] = {"simt_stacked_ms": simt_ms, "two_wgmma_ms": two_ms, "plain_ms": plain_ms,
+                                "max_abs_err": err, "flip_share": flips, "vs_two_wgmma_max_err": err_h}
+        print(f"stacked C = 16 launch at M={p.shape[0]} ({b} frames) on {smi}: SIMT {simt_ms:.4f} ms, two C = 8 "
+              f"tensor-core launches {two_ms:.4f} ms, plain {plain_ms:.4f} ms; vs plain max|Δcount| {err}, flip "
+              f"share {flips:.3e}; vs the two tensor-core launches max|Δcount| {err_h}")
+    return out
+
+
+def fleet_phase(dev: torch.device, smi: str, models: dict, cams: dict) -> dict:
+    """The cameras under a FleetController (FLEET_CONFIG, GateControllerConfig
+    target FLEET_TARGET): FLEET_TICKS ticks through ``run`` (depth 2), then
+    FLEET_TICKS more of the fpca_cnn cameras through ``serve_segments``
+    (segments of FLEET_SEGMENT ticks, the cameras' segments interleaved on
+    the one shared handle and captured graph), each segment against the
+    camera's own handle's ``run_segment`` on the same input carry and gate,
+    bit for bit; checks launches per tick per group (for the segments, the
+    profiler over the interleaved ``serve_segments`` run itself), the
+    allocation gauges summing to the budget and ``assert_reconciled``;
+    times the interleaving again unprofiled; prints
+    ``render_fleet_report``."""
+    from repro_torch.fpca import telemetry
+    from repro_torch.serving import (
+        FleetConfig,
+        FleetController,
+        StreamServer,
+        assert_reconciled,
+        fleet_report,
+        render_fleet_report,
+    )
+
+    configs = pipeline_configs(dev)
+    by_name = {c[0]: c for c in configs}
+    pipe = make_pipeline(dev, models, configs)
+    server = StreamServer(pipe, depth=2, controller=fpca.GateControllerConfig(target=FLEET_TARGET))
+    fc = FleetController(server, FleetConfig(**FLEET_CONFIG))
+    attach_cameras(fc, server)
+    out: dict = {"launches": {}}
+    step = Laps()
+    b0, s0 = pipe.stats.batches, pipe.stats.launches_skipped
+    _reset_fpca_counts()
+    results, wall = _run_ticks(fc, cams, range(FLEET_TICKS))
+    launched, designs = fpca_conv_cuda.launches, dict(fpca_conv_cuda.designs)
+    batches, skipped = pipe.stats.batches - b0, pipe.stats.launches_skipped - s0
+    check(launched == batches and batches + skipped == 2 * FLEET_TICKS,
+          f"fleet run: {launched} fpca launches, {batches} batches, {skipped} skipped for {FLEET_TICKS} ticks "
+          "of 2 config groups")
+    check(len(results) == FLEET_TICKS * (FLEET_CAMERAS + 2 * len(FAN)), f"fleet run: {len(results)} results")
+    out["launches"]["fleet run"] = launched
+    out["run_ms_per_tick"] = wall / FLEET_TICKS
+    alloc = {labels["stream"]: value for name, _k, labels, value in telemetry.registry().collect()
+             if name == "fpca_fleet_allocation" and labels.get("stream") in server.sessions}
+    check(len(alloc) == len(server.sessions) and abs(sum(alloc.values()) - FLEET_CONFIG["budget"]) < 1e-9,
+          f"fleet: allocation gauges {alloc} sum to {sum(alloc.values())}, the budget is {FLEET_CONFIG['budget']}")
+    assert_reconciled(pipe, server)
+    print(f"fleet run on {smi}: {FLEET_TICKS} ticks, {wall / FLEET_TICKS:.3f} ms per tick (host clock); fpca launches "
+          f"{launched} by design {designs}; allocation gauges sum to {sum(alloc.values()):.12f} (budget "
+          f"{FLEET_CONFIG['budget']}); {fc.rebalances} rebalances; assert_reconciled passed")
+    step("run")
+    # segments of the fpca_cnn cameras, interleaved on the shared handle,
+    # under the profiler: a replayed graph's kernels do not pass through the
+    # wrapper, so the profiler counts the fpca kernels this run launched
+    calls = []
+    serve_segment = pipe.run_config_segment
+
+    def recorded(name, frames, **kw):
+        calls.append((frames, kw))
+        return serve_segment(name, frames, **kw)
+
+    fpca_ids = [f"cam{i}" for i in range(FLEET_CAMERAS)]
+    seg_frames = {sid: cams[sid][FLEET_TICKS:2 * FLEET_TICKS] for sid in fpca_ids}
+    n_rounds = FLEET_TICKS // FLEET_SEGMENT
+
+    def interleaved(results: dict, order: list) -> None:
+        gens = {sid: fc.serve_segments(sid, seg_frames[sid], segment_length=FLEET_SEGMENT) for sid in fpca_ids}
+        for _ in range(n_rounds):
+            for sid in fpca_ids:
+                order.append(sid)
+                results.setdefault(sid, []).extend(next(gens[sid]) for _ in range(FLEET_SEGMENT))
+
+    def graphs() -> set:
+        return {k for k in pipe.cache_info(verbose=True).resident if "segment" in k}
+
+    order: list = []
+    seg_results: dict = {}
+    before = graphs()
+    pipe.run_config_segment = recorded
+    _reset_fpca_counts()
+    events = device_events(lambda: interleaved(seg_results, order), runs=1)
+    pipe.run_config_segment = serve_segment
+    new_graphs = len(graphs() - before)
+    n_calls, seg_ticks = len(calls), len(calls) * FLEET_SEGMENT
+    on_card = fpca_kernel_launches(events)
+    # every call replays its graph once (K kernels); a new graph's first
+    # call also warms its body up eagerly (K more) before the capture,
+    # whose launches the wrapper counts but the device does not run
+    check(n_calls == len(order) == n_rounds * len(fpca_ids)
+          and fpca_conv_cuda.launches == 2 * FLEET_SEGMENT * new_graphs
+          and on_card == {"wgmma": seg_ticks + FLEET_SEGMENT * new_graphs, "simt": 0},
+          f"fleet segments: {n_calls} segments, {new_graphs} new graphs; the device ran {on_card} fpca kernels and "
+          f"the wrapper counted {fpca_conv_cuda.launches}, expected one replay of {FLEET_SEGMENT} tensor-core "
+          f"kernels a segment and a warm-up and a capture of {FLEET_SEGMENT} ticks a new graph")
+    out["launches"]["fleet segments"] = on_card["wgmma"] + on_card["simt"]
+    out["segment_graphs_captured"] = new_graphs
+    out["segment_device_ms_per_stream_tick"] = sum(e.device_time_total for e in events) / 1e3 / seg_ticks
+    assert_reconciled(pipe, server)
+    step("segments profiled")
+    # the same interleaving again, unprofiled, for the host clock (the
+    # fleet's cameras carry on from the first pass)
+    before = graphs()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    interleaved({}, [])
+    torch.cuda.synchronize()
+    out["segment_ms_per_stream_tick"] = (time.perf_counter() - t0) * 1e3 / seg_ticks
+    out["segment_graphs_captured_timed"] = len(graphs() - before)
+    assert_reconciled(pipe, server)
+    step("segments timed")
+    # each segment of the profiled pass against the camera's own handle on
+    # the same carry and gate
+    _, prog, kernel, bn, head = by_name["fpca_cnn"]
+    own = fpca.compile(prog, device=dev, weights=kernel, bn_offset=bn, head_params=head,
+                       cache=fpca.ExecutableCache(64), model=models[75])
+    solo_state: dict = {}
+    done = {sid: 0 for sid in fpca_ids}
+    for sid, (frames, kw) in zip(order, calls):
+        state = solo_state.get(sid, kw["state"])
+        seg = own.run_segment(frames, state=state, gate=kw["gate"], m_bucket=kw["m_bucket"])
+        solo_state[sid] = seg.state
+        k = done[sid]
+        for t in range(seg.ticks):
+            r = seg_results[sid][k + t]
+            check(bool((seg.counts[t].cpu().numpy() == r.counts).all())
+                  and bool((seg.block_masks[t] == r.block_mask).all())
+                  and bool((seg.logits[t].cpu().numpy() == r.logits).all()),
+                  f"fleet segment {sid} tick {r.frame_idx}: differs from the camera's own run_segment")
+        done[sid] += seg.ticks
+    step("solo run_segment")
+    print(f"fleet segments on {smi}: {n_calls} segments of {FLEET_SEGMENT} ticks ({len(fpca_ids)} cameras "
+          f"interleaved on one handle through FleetController.serve_segments), {new_graphs} graphs captured; "
+          f"under the profiler the device ran fpca kernels {on_card} (one a replayed tick, plus the warm-up of each "
+          f"new graph), {out['segment_device_ms_per_stream_tick']:.4f} ms device per stream-tick; the same "
+          f"interleaving again unprofiled {out['segment_ms_per_stream_tick']:.4f} ms per stream-tick (host clock, "
+          f"{out['segment_graphs_captured_timed']} new graphs captured in it); each segment == the camera's own "
+          "run_segment on the same carry and gate, bit for bit")
+    report = fleet_report(server, fleet=fc)
+    print(render_fleet_report(report))
+    out["report_fleet"] = report["fleet"]
+    out["seconds_by_step"] = step.report("fleet phase")
+    return out
 
 
 # ---------------------------------------------------------------------------

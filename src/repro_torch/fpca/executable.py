@@ -82,9 +82,10 @@ class FrontendStats(telemetry.StatsView):
     * ``segments``          — segment launches
     * ``segment_ticks``     — ticks served from inside those launches
 
-    Constructed with a ``parent`` view (a pipeline's stats, when the port
-    has one), the cells chain into the parent's same-named cells, so every
-    increment lands in one place.
+    Constructed with a ``parent`` view (an
+    :class:`repro_torch.serving.fpca_pipeline.PipelineStats`), the cells
+    chain into the parent's same-named cells (``runs`` into ``batches``), so
+    every increment lands in one place.
     """
 
     _PREFIX = "fpca_frontend"
@@ -223,6 +224,7 @@ class CompiledFrontend:
         cache: ExecutableCache | None = None,
         cache_capacity: int = 8,
         bucket_patience: int = 1,
+        stats_parent: telemetry.StatsView | None = None,
     ):
         if bucket_patience < 1:
             raise ValueError("bucket_patience must be >= 1")
@@ -236,7 +238,10 @@ class CompiledFrontend:
         self._sticky: dict[int, StickyBucket] = {}   # keyed by padded window count
         self._kernel: torch.Tensor | None = None
         self._bn: torch.Tensor | None = None
-        self.stats = FrontendStats()
+        # parent-chained when a pipeline owns the handle: shared-name fields
+        # (windows_executed, launches_skipped, ...) single-source into the
+        # pipeline's PipelineStats cells
+        self.stats = FrontendStats(parent=stats_parent)
 
     # -- introspection -------------------------------------------------------
     @property
@@ -897,11 +902,18 @@ class CompiledModel(CompiledFrontend):
         return self._dispatch_weighted(kernel, bn_offset, images, window_keep)
 
     def head_logits(self, counts: Any, head_params: Any | None = None) -> torch.Tensor:
-        """Digital head on an explicit activation map."""
+        """Digital head on an explicit ``(b, h, w, c)`` activation map.  The
+        batch is zero-padded to the power of two that :meth:`run` pads the
+        same batch to: at the same shape a GEMM or convolution sums in the
+        same order, so ``head_logits(counts)`` equals the head of a fused
+        call on those counts bit for bit."""
         hp = self._require_head() if head_params is None else head_params
         self._m_runs.add(1)
         counts = torch.as_tensor(counts, dtype=torch.float32, device=self.device)
-        return self.model_program.apply_head(hp, counts)
+        b = counts.shape[0]
+        pad = _round_up_pow2(b) - b
+        counts = torch.cat([counts, counts.new_zeros((pad,) + tuple(counts.shape[1:]))]) if pad else counts.contiguous()
+        return self._head_executable()(hp, counts)[:b]
 
     def patched_logits(
         self,
@@ -913,12 +925,14 @@ class CompiledModel(CompiledFrontend):
         """Skip-aware head step: patch the kept windows of ``counts`` into
         ``prev_eff`` and run the head on the patched map.  Returns
         ``(logits, effective)``; callers carry ``effective`` forward as the
-        next tick's ``prev_eff``."""
+        next tick's ``prev_eff``.  Each row runs the head at batch 1, as
+        :meth:`stream` and a segment do: a batched conv or GEMM may sum in
+        another order, and a row's logits must not depend on the rows it
+        rides with (a server's camera equals the camera served alone)."""
         hp = self._require_head() if head_params is None else head_params
         self._m_runs.add(1)
         self._m_frames.add(int(np.shape(counts)[0]))
-        eff = _patch(self.device, counts, prev_eff, window_keep)
-        return self.model_program.apply_head(hp, eff), eff
+        return self._patch_executable()(hp, counts, prev_eff, window_keep)
 
     def fused_patched_logits(
         self,
@@ -929,20 +943,47 @@ class CompiledModel(CompiledFrontend):
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Shared-head fusion: one patch+head pass over stacked rows, each
         row binding its own head parameters (``head_params_rows`` is the
-        per-row stack, leading axis == ``counts.shape[0]``).
-
-        Row for row bit-identical to :meth:`patched_logits` on that row:
-        each row runs the head at batch 1, as a per-row call does (a
-        batched conv or GEMM may sum in another order)."""
+        per-row stack, leading axis == ``counts.shape[0]``).  Row for row
+        bit-identical to :meth:`patched_logits` on that row."""
         self._m_runs.add(1)
         self._m_frames.add(int(np.shape(counts)[0]))
-        eff = _patch(self.device, counts, prev_eff, window_keep)
+        return self._fused_patch_executable()(head_params_rows, counts, prev_eff, window_keep)
+
+    def _head_by_row(self, params_for_row: Callable, eff: torch.Tensor) -> torch.Tensor:
         head = self.model_program.apply_head
-        rows = [
-            head(tree_map(lambda a, i=i: a[i], head_params_rows), eff[i : i + 1])[0]
-            for i in range(eff.shape[0])
-        ]
-        return torch.stack(rows), eff
+        if eff.shape[0] == 1:
+            return head(params_for_row(0), eff)
+        return torch.stack([head(params_for_row(i), eff[i : i + 1])[0] for i in range(eff.shape[0])])
+
+    def _head_executable(self) -> Callable:
+        """The head alone, held in the shared cache like every executable."""
+        key = self._model_sig + ("head", str(self.device))
+        head = self.model_program.apply_head
+        return self._cache.get(key, lambda: self.backend.instrumented(head, site="head"))
+
+    def _patch_executable(self) -> Callable:
+        key = self._model_sig + ("head-patch", str(self.device))
+
+        def build() -> Callable:
+            def run(head_params, counts, prev_eff, window_keep):
+                eff = _patch(self.device, counts, prev_eff, window_keep)
+                return self._head_by_row(lambda i: head_params, eff), eff
+
+            return self.backend.instrumented(run, site="head_patch")
+
+        return self._cache.get(key, build)
+
+    def _fused_patch_executable(self) -> Callable:
+        key = self._model_sig + ("head-patch-fused", str(self.device))
+
+        def build() -> Callable:
+            def run(head_params_rows, counts, prev_eff, window_keep):
+                eff = _patch(self.device, counts, prev_eff, window_keep)
+                return self._head_by_row(lambda i: tree_map(lambda a: a[i], head_params_rows), eff), eff
+
+            return self.backend.instrumented(run, site="head_patch_fused")
+
+        return self._cache.get(key, build)
 
     # -- segments and streaming --------------------------------------------------
     def run_segment_weighted(
@@ -1024,6 +1065,7 @@ def compile(  # noqa: A001  (torch.compile-style public name)
     cache: ExecutableCache | None = None,
     cache_capacity: int = 8,
     bucket_patience: int = 1,
+    stats_parent: telemetry.StatsView | None = None,
 ) -> CompiledFrontend:
     """Compile a program into a held executable handle.
 
@@ -1041,6 +1083,9 @@ def compile(  # noqa: A001  (torch.compile-style public name)
         a private cache of ``cache_capacity`` otherwise.
       bucket_patience: sticky-bucket hysteresis for region-skip row buckets
         (``1`` = stateless).
+      stats_parent: optional :class:`repro_torch.fpca.telemetry.StatsView`
+        whose same-named cells receive every increment of the handle's stats
+        (how ``FPCAPipeline`` single-sources its fleet totals).
     """
     if isinstance(program, FPCASpec):
         program = FPCAProgram(spec=program)
@@ -1058,6 +1103,7 @@ def compile(  # noqa: A001  (torch.compile-style public name)
         common = dict(
             backend=be, model=model, device=dev, cache=cache,
             cache_capacity=cache_capacity, bucket_patience=bucket_patience,
+            stats_parent=stats_parent,
         )
         handle: CompiledFrontend
         if is_model:

@@ -160,6 +160,13 @@ class FPCAProgram:
             object.__setattr__(self, "_signature", sig)
         return sig
 
+    def fanout_signature(self) -> tuple:
+        """Compile signature with the channel width normalised out.  Two
+        programs may fan out into one channel-stacked launch (their NVM
+        planes concatenated) iff these match: the stacked launch serves one
+        adc/enc/circuit epilogue."""
+        return self.replace(out_channels=1).signature()
+
     def replace(self, **kw: Any) -> "FPCAProgram":
         return dataclasses.replace(self, **kw)
 

@@ -26,6 +26,7 @@ import pytest
 import torch
 
 import repro.fpca as jfpca
+from _port_checks import counts_close
 from repro.configs import fpca_cnn as j_fpca_cnn
 from repro.core.mapping import FPCASpec as JFPCASpec
 from repro.core.mapping import active_window_mask as j_active_window_mask
@@ -147,11 +148,6 @@ def _logits_close(got, want, counts_diff, head, scale) -> None:
     np.testing.assert_array_equal(got.argmax(1)[decided], want.argmax(1)[decided])
 
 
-def _counts_close(got, want) -> None:
-    diff = np.abs(np.asarray(got) - np.asarray(want))
-    assert diff.max() <= 1.0 and (diff > 0).mean() < 0.05
-
-
 @pytest.fixture(scope="module")
 def slice_case(bucket_model):
     """The reference's side of the whole-slice comparison, computed once."""
@@ -188,13 +184,13 @@ def test_whole_slice_matches_reference(slice_case, port_model, backend):
     m = fpca.compile(pp, backend=backend, device="cpu", weights=c["kern"], bn_offset=c["bn"],
                      head_params=head_params_from_numpy(c["head"], device="cpu"), model=port_model)
     counts = m.run_frontend_weighted(m.kernel, m.bn_offset, c["images"]).numpy()
-    _counts_close(counts, c["counts"])
+    counts_close(counts, c["counts"])
     logits = m.run(c["images"]).numpy()
     assert logits.shape == (3, 3)
     _logits_close(logits, c["logits"], counts - c["counts"], c["head"], 0.125)
     keep = np.broadcast_to(active_window_mask(m.spec, c["block"]), (3, 10, 10))
     masked = m.run_frontend_weighted(m.kernel, m.bn_offset, c["images"], keep).numpy()
-    _counts_close(masked, c["masked_counts"])
+    counts_close(masked, c["masked_counts"])
     np.testing.assert_array_equal(masked, counts * keep[..., None])       # in-port: exact
     logits_m = m.run(c["images"], block_mask=c["block"]).numpy()
     _logits_close(logits_m, c["masked_logits"], masked - c["masked_counts"], c["head"], 0.125)
@@ -220,7 +216,7 @@ def test_full_width_fpca_cnn_on_host_matches_reference(bucket_model, port_model)
     want_c = np.asarray(jm.run_frontend_weighted(jm.kernel, jm.bn_offset, frame))
     got_c = m.run_frontend_weighted(m.kernel, m.bn_offset, frame).numpy()
     assert got_c.shape == (1, 24, 24, 8)
-    _counts_close(got_c, want_c)
+    counts_close(got_c, want_c)
     _logits_close(m.run(frame).numpy(), np.asarray(jm.run(frame)), got_c - want_c, jhead, 1.0)
 
 

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from _port_checks import counts_close
 from repro.core.adc import ADCConfig as JADCConfig
 from repro.core.fpca_sim import WeightEncoding as JWeightEncoding
 from repro.core.mapping import FPCASpec as JFPCASpec
@@ -39,14 +40,6 @@ from repro_torch.kernels.fpca_conv.ref import fpca_conv_ref
 @pytest.fixture(scope="module")
 def models(bucket_model):
     return bucket_model, bucket_model_from_dict(bucket_model.to_dict())
-
-
-def _counts_close(got, want) -> None:
-    got, want = np.asarray(got), np.asarray(want)
-    assert got.shape == want.shape
-    diff = np.abs(got - want)
-    assert diff.max() <= 1.0, f"max count diff {diff.max()}"
-    assert (diff > 0).mean() < 0.05, f"too many rounding flips: {(diff > 0).mean():.3f}"
 
 
 def _data(m: int, c: int, seed: int = 0, n: int = 75):
@@ -89,9 +82,9 @@ def test_plain_version_matches_reference_ref_and_basis(models, m, c):
     got = _port_counts(pm, 8, patches, w_pos, w_neg, bn)
     args = (jnp.asarray(patches), jnp.asarray(w_pos), jnp.asarray(w_neg), jm, JADCConfig(),
             jnp.asarray(bn))
-    _counts_close(got, j_fpca_conv_ref(*args))
-    _counts_close(got, j_ops.fpca_conv_basis_jnp(*args))
-    _counts_close(fpca_conv_ref(torch.from_numpy(patches), torch.from_numpy(w_pos),
+    counts_close(got, j_fpca_conv_ref(*args))
+    counts_close(got, j_ops.fpca_conv_basis_jnp(*args))
+    counts_close(fpca_conv_ref(torch.from_numpy(patches), torch.from_numpy(w_pos),
                                 torch.from_numpy(w_neg), pm, ADCConfig(),
                                 torch.from_numpy(bn)), j_fpca_conv_ref(*args))
 
@@ -107,7 +100,7 @@ def test_plain_version_matches_reference_basis_16bit(models):
     got = _port_counts(pm, 16, patches, w_pos, w_neg, bn)
     want = j_ops.fpca_conv_basis_jnp(jnp.asarray(patches), jnp.asarray(w_pos),
                                      jnp.asarray(w_neg), jm, JADCConfig(bits=16), jnp.asarray(bn))
-    _counts_close(got, want)
+    counts_close(got, want)
 
 
 def test_plain_version_matches_pallas_kernel_interpret(models):
@@ -122,7 +115,7 @@ def test_plain_version_matches_pallas_kernel_interpret(models):
         jnp.asarray(np.pad(w_neg, pad[::-1])), jm, JADCConfig(), jnp.asarray(bn),
         mask=jnp.asarray(mask), n_real=75, block_m=64, block_c=128, interpret=True,
     )
-    _counts_close(_port_counts(pm, 8, patches, w_pos, w_neg, bn), want)
+    counts_close(_port_counts(pm, 8, patches, w_pos, w_neg, bn), want)
 
 
 def test_row_valid_zeroes_padding_rows_exactly(models):
@@ -208,7 +201,7 @@ def test_fpca_conv_parity_grid_dense_masked_zero_kept(models):
     common = dict(spec=spec, bn_offset=torch.from_numpy(bn), enc=WeightEncoding())
     dense = {impl: ops.fpca_conv(*args, impl=impl, **common) for impl in ("basis", "cuda")}
     assert torch.equal(dense["basis"], dense["cuda"])
-    _counts_close(dense["basis"], want)
+    counts_close(dense["basis"], want)
     M = want.shape[0] * want.shape[1] * want.shape[2]
     for n_keep in (0, 1, 7, 8, 9, 63, 64, 65, M):
         flat = np.zeros(M, bool)
@@ -217,7 +210,7 @@ def test_fpca_conv_parity_grid_dense_masked_zero_kept(models):
         got = ops.fpca_conv(*args, impl="basis", window_mask=mask, **common)
         keep = torch.from_numpy(mask)[..., None].float()
         assert torch.equal(got, dense["basis"] * keep), n_keep
-        _counts_close(got, want * mask[..., None])
+        counts_close(got, want * mask[..., None])
     with pytest.raises(ValueError, match="m_bucket"):
         ops.fpca_conv(*args, impl="basis", window_mask=np.ones((2, 11, 11), bool), m_bucket=4,
                       **common)

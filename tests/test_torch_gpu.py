@@ -37,6 +37,12 @@ Tolerances, each kernel against its plain PyTorch version on the card:
 - segments: a segment replayed from its CUDA graph equal to the same body
   run eagerly on the card, and to per-tick ``stream()``, bit for bit (the
   same kernels on the same inputs, in the same order).
+- multi-camera serving: a stacked C = 16 fan-out launch (SIMT design)
+  within the fpca limit of the plain version and of each config's
+  tensor-core launch, and bit for bit each config's own SIMT launch (one
+  design rounds one way); server cameras at depth 2 and segments of two
+  streams interleaved on one shared handle equal each stream served alone
+  through its own handle, bit for bit.
 """
 
 from __future__ import annotations
@@ -394,6 +400,126 @@ def test_segment_reprogram_and_servo_step_build_nothing(cuda, model):
     want = fresh.run_segment(frames, m_bucket=16, gate=gate)
     assert torch.equal(seg.counts, want.counts) and torch.equal(seg.logits, want.logits)
     assert not torch.equal(seg.counts, first.counts)
+
+
+# ---------------------------------------------------------------------------
+# multi-camera serving: the stacked fan-out launch, the server at depth 2,
+# segments of two streams on one shared handle
+# ---------------------------------------------------------------------------
+
+
+def _serving_pipeline(cuda, model):
+    """fe0 / fe1: two 8-channel frontend configs of one spec; cam: a model
+    config on the same spec; 48x48 frames, 81 windows a frame."""
+    from repro_torch.serving import FPCAPipeline
+
+    spec = fpca.FPCASpec(image_h=48, image_w=48, out_channels=8, kernel=5, stride=5)
+    pipe = FPCAPipeline(model, device=cuda)
+    g = torch.Generator().manual_seed(11)
+    for name in ("fe0", "fe1"):
+        pipe.register(name, spec, torch.randn((8, 5, 5, 3), generator=g) * 0.3,
+                      torch.randint(0, 24, (8,), generator=g).float())
+    prog = fpca.FPCAModelProgram(frontend=fpca.FPCAProgram(spec=spec),
+                                 head=(fpca.DenseSpec(16, activation="relu"), fpca.DenseSpec(3)))
+    pipe.register("cam", prog, torch.randn((8, 5, 5, 3), generator=g) * 0.3, head_params=prog.init_head(g, device=cuda))
+    return pipe
+
+
+def _own_handle(pipe, name, model, cuda):
+    cfg = pipe._configs[name]
+    kw = dict(device=cuda, model=model, weights=cfg.kernel, bn_offset=cfg.bn_offset)
+    if isinstance(cfg, fpca.ProgrammedModel):
+        return fpca.compile(cfg.model, head_params=cfg.head_params, **kw)
+    return fpca.compile(cfg.program, **kw)
+
+
+def test_stacked_sixteen_channel_launch_takes_simt_and_matches(cuda, model, monkeypatch):
+    """A fan-out of two 8-channel configs is one C = 16 launch on the SIMT
+    design: within the fpca limit of the plain version and of each config's
+    own tensor-core launch, and bit for bit each config's own launch when
+    that takes the SIMT design too."""
+    pipe = _serving_pipeline(cuda, model)
+    frames = _scene(6).to(cuda)
+    keep = (torch.rand((6, 9, 9), generator=torch.Generator().manual_seed(2)) < 0.5).numpy()
+    before, designs = fpca_conv_cuda.launches, dict(fpca_conv_cuda.designs)
+    got = pipe.run_config_batch(["fe0", "fe1"], frames, keep)
+    torch.cuda.synchronize()
+    assert fpca_conv_cuda.launches == before + 1 and fpca_conv_cuda.designs["simt"] == designs["simt"] + 1
+    plain = fpca.compile(pipe._configs["fe0"].program.replace(out_channels=16), backend="basis", device=cuda,
+                         model=model, weights=torch.cat([pipe._configs[n].kernel for n in ("fe0", "fe1")]),
+                         bn_offset=torch.cat([pipe._configs[n].bn_offset for n in ("fe0", "fe1")]))
+    diff = (got - plain.run_weighted(plain.kernel, plain.bn_offset, frames, keep)).abs()
+    assert float(diff.max()) <= 1.0 and float((diff > 0).float().mean()) < 0.05
+    for i, name in enumerate(("fe0", "fe1")):
+        own = _own_handle(pipe, name, model, cuda)
+        tc = own.run_weighted(own.kernel, own.bn_offset, frames, keep)
+        d = (got[..., 8 * i:8 * i + 8] - tc).abs()
+        assert float(d.max()) <= 1.0 and float((d > 0).float().mean()) < 0.05
+        monkeypatch.setattr(fpca_kernel, "TC_MAX_CHANNELS", 0)
+        simt = own.run_weighted(own.kernel, own.bn_offset, frames, keep)
+        monkeypatch.undo()
+        assert torch.equal(got[..., 8 * i:8 * i + 8], simt)
+
+
+def test_four_camera_server_at_depth_two_equals_each_stream(cuda, model):
+    """Four cameras of one model config on one server, double-buffered:
+    each camera's counts, masks and logits equal its own handle's
+    ``stream()`` bit for bit; the batched gate equals the solo gate."""
+    from repro_torch.core import gating
+    from repro_torch.serving import StreamServer
+
+    pipe = _serving_pipeline(cuda, model)
+    gate = fpca.DeltaGateConfig(threshold=0.02, hysteresis=0, keyframe_interval=7)
+    server = StreamServer(pipe, gate, depth=2)
+    scenes = {f"c{i}": _scene(12, seed=i) for i in range(4)}
+    for sid in scenes:
+        server.add_stream(sid, "cam")
+    results = [r for rs in server.run({sid: f[t] for sid, f in scenes.items()} for t in range(12)) for r in rs]
+    own = _own_handle(pipe, "cam", model, cuda)
+    for sid, frames in scenes.items():
+        mine = [r for r in results if r.stream_id == sid]
+        solo = list(own.stream(frames, gate=gate, controller=None))
+        assert len(mine) == len(solo) == 12
+        for a, b in zip(mine, solo):
+            assert (a.counts == b.counts).all() and (a.block_mask == b.block_mask).all()
+            assert (a.logits == b.logits).all() and a.kept_windows == b.kept_windows
+    kern = gating.host_gate_kernels(pipe._configs["cam"].spec, cuda)
+    prev = gating.effective_frame(torch.stack([f[0] for f in scenes.values()]).to(cuda), pipe._configs["cam"].spec)
+    cur = torch.stack([f[1] for f in scenes.values()]).to(cuda)
+    effs, deltas = kern.step_batch(prev, cur)
+    for i in range(4):
+        e, d = kern.step(prev[i], cur[i])
+        assert torch.equal(e, effs[i]) and torch.equal(d, deltas[i])
+
+
+def test_two_streams_interleave_segments_on_one_shared_handle(cuda, model):
+    """Two streams of one config share one captured segment graph; their
+    segments interleaved equal each stream's own chain of segments on a
+    fresh handle, bit for bit."""
+    from repro_torch.serving import StreamServer
+
+    pipe = _serving_pipeline(cuda, model)
+    gate = fpca.DeltaGateConfig(threshold=0.02, hysteresis=0, keyframe_interval=7)
+    server = StreamServer(pipe, gate)
+    scenes = {"a": _scene(12, seed=5), "b": _scene(12, seed=6)}
+    for sid in scenes:
+        server.add_stream(sid, "cam")
+    gens = {sid: server.serve_segments(sid, f, segment_length=4) for sid, f in scenes.items()}
+    got = {sid: [] for sid in scenes}
+    for _ in range(3):
+        for sid, gen in gens.items():
+            got[sid].extend(next(gen) for _ in range(4))
+    for sid, frames in scenes.items():
+        own = _own_handle(pipe, "cam", model, cuda)
+        state = None
+        for s in range(3):
+            seg = own.run_segment(frames[4 * s:4 * s + 4], state=state, gate=gate)
+            state = seg.state
+            for t in range(4):
+                r = got[sid][4 * s + t]
+                assert (seg.counts[t].cpu().numpy() == r.counts).all()
+                assert (seg.block_masks[t] == r.block_mask).all()
+                assert (seg.logits[t].cpu().numpy() == r.logits).all()
 
 
 # ---------------------------------------------------------------------------

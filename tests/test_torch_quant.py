@@ -30,6 +30,7 @@ import pytest
 import torch
 
 import repro.fpca as jfpca
+from _port_checks import same_error
 from repro.core.mapping import FPCASpec as JFPCASpec
 from repro.kernels.fpca_conv import kernel as j_kernel
 from repro.kernels.fpca_conv import ops as j_ops
@@ -77,14 +78,6 @@ def _kernel(seed: int = 0) -> np.ndarray:
 @pytest.fixture(scope="module")
 def port_model(bucket_model):
     return bucket_model_from_dict(bucket_model.to_dict())
-
-
-def _same_error(ref_call, port_call) -> None:
-    with pytest.raises(Exception) as want:
-        ref_call()
-    with pytest.raises(type(want.value)) as got:
-        port_call()
-    assert str(got.value) == str(want.value)
 
 
 # ---------------------------------------------------------------------------
@@ -209,7 +202,7 @@ def test_act_scale_pack_roundtrip(which):
         assert packed.shape == (len(pp.head),) and back[1] is None
         assert [b is None for b in back] == [s is None for s in scales]
         assert [b for b in back if b] == pytest.approx([s for s in scales if s], rel=1e-6)
-    _same_error(lambda: jquant.unpack_act_scales(jp, packed[:-1]), lambda: quant.unpack_act_scales(pp, packed[:-1]))
+    same_error(lambda: jquant.unpack_act_scales(jp, packed[:-1]), lambda: quant.unpack_act_scales(pp, packed[:-1]))
 
 
 BIND_CASES = ["missing_key", "bad_w_q", "stages", "params_on_pool", "graph_not_dict", "graph_keys"]
@@ -238,7 +231,7 @@ def test_bind_quant_errors_match_reference(case):
             p[1] = dict(p[0])
         return p
 
-    _same_error(lambda: jquant.bind_quant_head_params(jp, bad()), lambda: quant.bind_quant_head_params(pp, bad()))
+    same_error(lambda: jquant.bind_quant_head_params(jp, bad()), lambda: quant.bind_quant_head_params(pp, bad()))
     bound = pp.bind_head_params(head_params_from_numpy(q, device="cpu"))
     assert quant.is_quantized_params(bound)
 
@@ -251,7 +244,7 @@ def test_signature_precision_entry_byte_equal(which):
     f32 = pp.replace(precision="f32")
     assert not any("precision" in str(e) for e in f32.signature())
     assert repr(f32.signature()) == repr(jp.replace(precision="f32").signature())
-    _same_error(lambda: jp.replace(precision="fp4"), lambda: pp.replace(precision="fp4"))
+    same_error(lambda: jp.replace(precision="fp4"), lambda: pp.replace(precision="fp4"))
 
 
 # ---------------------------------------------------------------------------

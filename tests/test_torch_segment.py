@@ -30,6 +30,7 @@ import pytest
 import torch
 
 import repro.fpca as jfpca
+from _port_checks import counts_close
 from repro.core.mapping import active_window_mask as j_active_window_mask
 from repro.serving import streaming as j_streaming
 from repro_torch import fpca
@@ -113,11 +114,6 @@ def _pair(bucket_model, port_model, arch=None, gate=GATE, precision="f32", kerne
     return j, p
 
 
-def _counts_close(got, want) -> None:
-    diff = np.abs(np.asarray(got) - np.asarray(want))
-    assert diff.max() <= 1.0 and (diff > 0).mean() < 0.05
-
-
 def _same_bookkeeping(seg, jseg) -> None:
     assert seg.ticks == jseg.ticks and seg.length == jseg.length and seg.gated == jseg.gated
     assert seg.first_frame_idx == jseg.first_frame_idx
@@ -178,7 +174,7 @@ def test_frontend_segment_matches_reference_and_stream(bucket_model, port_model,
     kw = {} if gated else {"gate": None}
     jseg, seg = j.run_segment(frames, length=8, **kw), p.run_segment(frames, length=8, **kw)
     _same_bookkeeping(seg, jseg)
-    _counts_close(seg.counts.numpy(), jseg.counts)
+    counts_close(seg.counts.numpy(), jseg.counts)
     assert p.stats.as_dict() == j.stats.as_dict()
     assert seg.counts.device.type == "cpu" and seg.logits is None
     if gated:
@@ -215,7 +211,7 @@ def test_model_segments_match_reference_and_stream(bucket_model, port_model, arc
     frames = _scene(8, seed=2)
     jseg, seg = j.run_segment(frames), p.run_segment(frames)
     _same_bookkeeping(seg, jseg)
-    _counts_close(seg.counts.numpy(), jseg.counts)
+    counts_close(seg.counts.numpy(), jseg.counts)
     assert p.stats.as_dict() == j.stats.as_dict()
     assert tuple(seg.logits.shape) == (8,) + tuple(p.head_out_shape)
     _logits_close(seg, jseg, j, p.spec)
@@ -283,7 +279,7 @@ def test_reprogram_between_segments_builds_nothing(bucket_model, port_model):
     assert p.cache_info().misses == misses
     for seg, jseg in ((s2, j2), (s3, j3)):
         _same_bookkeeping(seg, jseg)
-        _counts_close(seg.counts.numpy(), jseg.counts)
+        counts_close(seg.counts.numpy(), jseg.counts)
     _, host = _pair(bucket_model, port_model)
 
     def feed():   # stream() launches each tick as it pulls the frame
@@ -312,7 +308,7 @@ def test_segment_continues_from_a_reference_carry(bucket_model, port_model):
     s2 = p.run_segment(frames[4:], state=state)
     own2 = p.run_segment(frames[4:], state=own1.state)
     _same_bookkeeping(s2, j2)
-    _counts_close(s2.counts.numpy(), j2.counts)
+    counts_close(s2.counts.numpy(), j2.counts)
     if torch.equal(state.eff, own1.state.eff):
         assert torch.equal(s2.counts, own2.counts) and torch.equal(s2.logits, own2.logits)
     assert s2.first_frame_idx == 4 and state.suggested_bucket == j1.state.suggested_bucket

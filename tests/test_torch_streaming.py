@@ -402,16 +402,20 @@ def test_compact_rows_matches_nonzero():
 
 
 def test_port_imports_no_jax_and_nothing_of_the_reference():
-    """Every module of ``repro_torch`` and ``chip_smoke.py``, imported in a
-    fresh interpreter, leave neither ``jax`` nor ``repro`` in sys.modules."""
+    """Every module of ``repro_torch`` (the serving modules among them) and
+    ``chip_smoke.py``, imported in a fresh interpreter, leave neither
+    ``jax`` nor ``repro`` in sys.modules."""
+    serving = [f"repro_torch.serving.{m}" for m in
+               ("fpca_pipeline", "streaming", "events", "saliency", "fleet", "observe")]
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        f"missing = sorted(set({serving!r}) - set(sys.modules))\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
-        "print(bad)\n"
+        "print(missing + bad)\n"
     )
     env = {**os.environ, "PYTHONPATH": f"{ROOT / 'src'}{os.pathsep}{ROOT}"}
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True,

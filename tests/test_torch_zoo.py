@@ -23,6 +23,7 @@ import pytest
 import torch
 
 import repro.fpca as jfpca
+from _port_checks import same_error
 from repro.configs import fpca_cnn as j_fpca_cnn
 from repro.core.mapping import FPCASpec as JFPCASpec
 from repro.fpca import zoo as jzoo
@@ -104,15 +105,6 @@ def port_model(bucket_model):
     return bucket_model_from_dict(bucket_model.to_dict())
 
 
-def _same_error(ref_call, port_call) -> None:
-    """Both sides raise the same exception type with the same message."""
-    with pytest.raises(Exception) as want:
-        ref_call()
-    with pytest.raises(type(want.value)) as got:
-        port_call()
-    assert str(got.value) == str(want.value)
-
-
 # ---------------------------------------------------------------------------
 # registry
 # ---------------------------------------------------------------------------
@@ -156,7 +148,7 @@ def test_registry_errors_match_reference(case):
         else:
             z.build_model({"spec": _spec(mod)})
 
-    _same_error(lambda: call(jfpca), lambda: call(fpca))
+    same_error(lambda: call(jfpca), lambda: call(fpca))
 
 
 # ---------------------------------------------------------------------------
@@ -267,7 +259,7 @@ INVALID = ["cycle", "duplicate", "reserved", "undefined", "missing_output", "bad
 
 @pytest.mark.parametrize("case", INVALID)
 def test_head_graph_errors_match_reference(case):
-    _same_error(lambda: _invalid(jfpca, case), lambda: _invalid(fpca, case))
+    same_error(lambda: _invalid(jfpca, case), lambda: _invalid(fpca, case))
 
 
 @pytest.mark.parametrize("case", ["missing_node", "bad_shape", "not_a_dict"])
@@ -285,7 +277,7 @@ def test_graph_param_binding_errors_match_reference(case):
             p = list(p.values())
         return p
 
-    _same_error(lambda: jm.bind_head_params(bad()), lambda: pm.bind_head_params(bad(), device="cpu"))
+    same_error(lambda: jm.bind_head_params(bad()), lambda: pm.bind_head_params(bad(), device="cpu"))
 
 
 # ---------------------------------------------------------------------------
@@ -400,8 +392,8 @@ def test_detections_match_reference_on_the_same_raw_map(served):
     one_p = heads.Detections(got.scores[1], got.boxes[1])
     assert one_p.top_k(5) == one_j.top_k(5)
     assert one_p.top_k(100) == one_j.top_k(100)
-    _same_error(lambda: want.top_k(3), lambda: got.top_k(3))
-    _same_error(lambda: jheads.Detections.from_raw(raw, 4), lambda: heads.Detections.from_raw(torch.from_numpy(raw), 4))
+    same_error(lambda: want.top_k(3), lambda: got.top_k(3))
+    same_error(lambda: jheads.Detections.from_raw(raw, 4), lambda: heads.Detections.from_raw(torch.from_numpy(raw), 4))
 
 
 @pytest.mark.parametrize("arch", ["fpca_resnet", "fpca_detect"])
