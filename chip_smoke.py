@@ -70,6 +70,21 @@ then, through the same kernel, the model zoo and int8 head serving:
    camera's own ``run_segment`` bit for bit, the allocation gauges summing
    to the budget, ``assert_reconciled`` and ``render_fleet_report``;
 
+7e. trains the FPCA training example (``examples/train_fpca_cnn_torch.py``
+   at its defaults: 60x60x3 frames, 8 channels of 5x5 at stride 5, 4-bit
+   ADC, 8 NVM levels, batch 32, 200 AdamW steps) on the card twice: through
+   ``FPCAFrontend.apply(train=True)`` (the differentiable bucket model with
+   STEs, ``hw_aware``) and through an ideal convolution (``naive``); first
+   holds one hw-aware loss and its gradients against the host's at 20x20
+   frames; checks finite losses and grad norms and no fpca launch in
+   training; scores both networks on the circuit oracle (512 images) and
+   the hw-aware one through the fpca kernel (``backend="cuda"``, one
+   launch per batch of 128), checking hw-aware >= 80% and above naive;
+   compiles the exported bundle and checks its counts equal the layer's
+   kernel counts bit for bit; holds the kernel against its plain version
+   at M = 18,432; prints step times, a step's device time, busy share and
+   peak memory, evaluation times and the calibration;
+
 then the language-model serving path (``repro_torch.launch.serve``):
 
 8. initialises zamba2-7b at full width (d_model 3584, 81 Mamba2 layers, one
@@ -119,10 +134,13 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import importlib.util
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from typing import NamedTuple
@@ -136,7 +154,8 @@ import torch  # noqa: E402
 from repro_torch import fpca  # noqa: E402
 from repro_torch.configs import fpca_cnn  # noqa: E402
 from repro_torch.core.curvefit import fit_bucket_model  # noqa: E402
-from repro_torch.core.fpca_sim import encode_weights, extract_windows  # noqa: E402
+from repro_torch.core.fpca_sim import encode_weights, extract_windows, fpca_forward  # noqa: E402
+from repro_torch.core.frontend import FPCAFrontend  # noqa: E402
 from repro_torch.core.mapping import active_window_mask, output_dims  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.fpca_conv import kernel as fpca_kernel  # noqa: E402
@@ -147,7 +166,7 @@ from repro_torch.kernels.fpca_conv.kernel import (  # noqa: E402
     weight_planes,
 )
 from repro_torch.configs import ARCHS, reduce_for_smoke  # noqa: E402
-from repro_torch.data.pipeline import LMStreamConfig, SyntheticLM, SyntheticMovingObject  # noqa: E402
+from repro_torch.data.pipeline import LMStreamConfig, SyntheticLM, SyntheticMovingObject, SyntheticVWW  # noqa: E402
 from repro_torch.kernels.flash_attention import bwd as flash_bwd  # noqa: E402
 from repro_torch.kernels.flash_attention.bwd import (  # noqa: E402
     flash_attention_dkdv_cuda,
@@ -213,6 +232,13 @@ FLEET_CONFIG, FLEET_TARGET = {"budget": 2.4, "floor": 0.02, "rebalance_ticks": 8
 # which the fan-out is held against each config served alone (a keyframe
 # period and a refresh)
 SERVER_WARM, FAN_SOLO_TICKS = 4, 32
+# the FPCA training path (examples/train_fpca_cnn_torch.py at its defaults,
+# read from the example: STEPS AdamW steps of BATCH per mode, ADC_BITS,
+# NVM_LEVELS); the card-vs-host check at 20x20 frames, 4 channels, batch 4;
+# the hw-aware network must reach FPCA_TRAIN_MIN_ACC on the circuit oracle
+# and beat the naive one
+FPCA_TRAIN_SMOKE = dict(image_h=20, image_w=20, out_channels=4, kernel=5, stride=5)
+FPCA_TRAIN_SMOKE_BATCH, FPCA_TRAIN_MIN_ACC = 4, 0.80
 # int8 logits card vs host from the same counts and quantised parameters,
 # as a share of max|logit|: every stage's int32 accumulators agree exactly;
 # the f32 ops between stages (an avg-pool summed in another order) can move
@@ -252,6 +278,21 @@ def check(cond: bool, msg: str) -> None:
 def count_diff(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
     d = (a - b).abs()
     return float(d.max()), float((d > 0).float().mean())
+
+
+def host_ms(fn, runs: int = 10, warmup: int = 1) -> float:
+    """Median host milliseconds of a synchronised ``fn()``, after ``warmup``
+    untimed calls."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
 
 
 def time_cuda(fn, iters: int = 20, flush_bytes: int = 128 << 20) -> float:
@@ -324,6 +365,24 @@ def logit_bound(head: list[dict], d_counts: torch.Tensor, scale: float) -> torch
     |Δlogits| <= |W2|^T |W1|^T |Δx|)."""
     dx = d_counts.abs().reshape(d_counts.shape[0], -1) * scale
     return (dx @ head[0]["w"].abs()) @ head[1]["w"].abs()
+
+
+def fpca_bound_ms(M: int, N: int, C: int, T: int, NB: int) -> tuple[float, dict, int, int]:
+    """The fpca kernel's bound at M windows of N pixels, C channels, T f_avg
+    terms and NB buckets: the largest of its four parts (bytes, six bf16
+    tensor-core passes, the gate bank's fp32 and MUFU operations), in ms.
+    Returns (bound, parts, bytes moved, dot-product FLOP)."""
+    bytes_moved = 4 * (M * N + M * C)
+    dot_flops = 2 * 3 * M * C * N * 2        # 2 phases x 3 dot products x M*C*N FMAs
+    outs = M * C * 2                         # (window, channel, phase)
+    parts = {
+        "bytes": bytes_moved / PEAK_BYTES_PER_S * 1e3,
+        "tensor": FPCA_PASSES * dot_flops / PEAK_BF16_FLOP_PER_S * 1e3,
+        "fp32": (outs * (2 * T + (NB + 1) * FPCA_FLOP_PER_EDGE + NB * FPCA_FLOP_PER_BUCKET) + M * 5 * N)
+        / PEAK_FP32_FLOP_PER_S * 1e3,
+        "mufu": outs * ((NB + 1) * FPCA_MUFU_PER_EDGE + FPCA_MUFU_EXTRA) / PEAK_MUFU_PER_S * 1e3,
+    }
+    return max(parts.values()), parts, bytes_moved, dot_flops
 
 
 def main() -> None:
@@ -445,17 +504,7 @@ def main() -> None:
     plain_ms = time_cuda(lambda: fpca_conv_basis(patches, planes, tables, bn_dev))
     M, N = patches.shape
     C, T, NB = prog.out_channels, planes["aw"].shape[1], bucket_model.n_buckets
-    bytes_moved = 4 * (M * N + M * C)
-    dot_flops = 2 * 3 * M * C * N * 2        # 2 phases x 3 dot products x M*C*N FMAs
-    outs = M * C * 2                         # (window, channel, phase)
-    parts = {
-        "bytes": bytes_moved / PEAK_BYTES_PER_S * 1e3,
-        "tensor": FPCA_PASSES * dot_flops / PEAK_BF16_FLOP_PER_S * 1e3,
-        "fp32": (outs * (2 * T + (NB + 1) * FPCA_FLOP_PER_EDGE + NB * FPCA_FLOP_PER_BUCKET) + M * 5 * N)
-        / PEAK_FP32_FLOP_PER_S * 1e3,
-        "mufu": outs * ((NB + 1) * FPCA_MUFU_PER_EDGE + FPCA_MUFU_EXTRA) / PEAK_MUFU_PER_S * 1e3,
-    }
-    fpca_bound = max(parts.values())
+    fpca_bound, parts, bytes_moved, dot_flops = fpca_bound_ms(M, N, C, T, NB)
     old_bound = max(parts["bytes"], dot_flops / PEAK_FP32_FLOP_PER_S * 1e3)
     print(f"fpca_conv at M={M}, N={N}, C={C} on {smi}: kernel {ms:.4f} ms (tensor-core design), SIMT design "
           f"{simt_ms:.4f} ms, plain {plain_ms:.4f} ms; bound {fpca_bound:.4f} ms, the largest of bytes "
@@ -521,6 +570,9 @@ def main() -> None:
     serving["seconds_by_step"] = step.report("multi-camera serving")
     print(f"multi-camera serving phases: {time.perf_counter() - t_serving:.1f} s (target: about 60 s more than "
           "the script without them)")
+    fpca_entry["fpca_train"] = fpca_train_phase(dev, smi, bucket_model)
+    by_path.update(fpca_entry["fpca_train"].pop("launches"))
+    fpca_entry["launches"] = sum(by_path.values())
     gc.collect()
     torch.cuda.empty_cache()
     flash_entry, ssd_entry = lm_phase(dev, smi)
@@ -625,13 +677,7 @@ def serve_requests(label: str, model, requests: list, check_out) -> tuple[int, d
     print(f"{label}: {len(requests)} requests, fpca_conv_cuda launches {launches} by design {designs}")
     latency = {}
     for req, x, mask in requests:
-        times = []
-        for _ in range(10):
-            t0 = time.perf_counter()
-            model.run(x, block_mask=mask)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        latency[req] = statistics.median(times)
+        latency[req] = host_ms(lambda: model.run(x, block_mask=mask), warmup=0)
         print(f"latency {label} {req}: median {latency[req]:.3f} ms ({x.shape[0] / latency[req] * 1e3:.1f} frames/s)")
     return launches, designs, latency
 
@@ -921,13 +967,7 @@ def stream_phase(dev: torch.device, smi: str, bucket_model) -> dict:
         # -- times: stream() per tick, segment replay per tick, device share --------
         first = frames[:STREAM_K]
         model.run_segment(first)   # the first segment's graph (fresh state, bucket M) is captured
-        seg_ms = []
-        for _ in range(10):
-            t0 = time.perf_counter()
-            model.run_segment(first)
-            torch.cuda.synchronize()
-            seg_ms.append((time.perf_counter() - t0) * 1e3)
-        replay_ms = statistics.median(seg_ms)
+        replay_ms = host_ms(lambda: model.run_segment(first), warmup=0)
         events = device_events(lambda: model.run_segment(first), runs=1)
         device_ms = sum(e.device_time_total for e in events) / 1e3
         per_tick = statistics.median(tick_ms[1:n])
@@ -1111,14 +1151,8 @@ def pipeline_phase(dev: torch.device, smi: str, models: dict) -> dict:
         check(launched == n_launches and designs == want_designs,
               f"pipeline (cross_config_batching={cross}): {launched} fpca launches by design {designs}, expected "
               f"one a group or merged group, {want_designs}")
-        times = []
-        for _ in range(PIPE_TIMED):
-            t0 = time.perf_counter()
-            pipe.serve(reqs)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
         label = "merged" if cross else "unmerged"
-        out[f"serve_ms_{label}"] = statistics.median(times)
+        out[f"serve_ms_{label}"] = host_ms(lambda: pipe.serve(reqs), runs=PIPE_TIMED, warmup=0)
         out[f"designs_{label}"] = designs
         out["launches"][f"pipeline serve ({label})"] = launched
         served[cross] = results
@@ -1589,6 +1623,204 @@ def fleet_phase(dev: torch.device, smi: str, models: dict, cams: dict) -> dict:
     out["report_fleet"] = report["fleet"]
     out["seconds_by_step"] = step.report("fleet phase")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the FPCA training path: examples/train_fpca_cnn_torch.py on the card
+# ---------------------------------------------------------------------------
+
+
+def load_train_example():
+    """``examples/train_fpca_cnn_torch.py`` as a module (the examples are
+    scripts, not a package)."""
+    path = ROOT / "examples" / "train_fpca_cnn_torch.py"
+    spec = importlib.util.spec_from_file_location("train_fpca_cnn_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def fpca_train_phase(dev: torch.device, smi: str, bucket_model) -> dict:
+    """Train the example's network (60x60x3 frames, 8 channels of 5x5,
+    stride 5, 4-bit ADC, 8 NVM levels, batch 32, 200 AdamW steps) on the
+    card twice, through the bucket model (``hw_aware``) and through an ideal
+    convolution (``naive``), and deploy both on the circuit oracle and the
+    hw-aware one through the fpca kernel.  Checks, in order: one hw-aware
+    loss and its gradients card vs host at smoke size; finite losses and
+    grad norms and no fpca launch in training; hw-aware >= 80% on the oracle
+    and above naive; one kernel launch per deployed batch, on ``wgmma``;
+    the kernel against its plain version at the path's M = 18,432; the
+    export rebuilt and compiled, its counts equal to the layer's kernel
+    counts bit for bit.  Returns the numbers and ``launches``."""
+    t_phase = time.perf_counter()
+    step = Laps()
+    ex = load_train_example()
+    cpu = torch.device("cpu")
+    adc, enc = fpca.ADCConfig(bits=ex.ADC_BITS), fpca.WeightEncoding(n_levels=ex.NVM_LEVELS)
+
+    # ---- card vs host: one hw-aware loss and its gradients, smoke size ----
+    smoke = fpca.FPCAProgram(spec=fpca.FPCASpec(**FPCA_TRAIN_SMOKE), adc=adc, enc=enc)
+    batch = SyntheticVWW((smoke.spec.image_h, smoke.spec.image_w)).batch_at(0, FPCA_TRAIN_SMOKE_BATCH)
+    got = []
+    for d in (dev, cpu):
+        layer = FPCAFrontend(smoke, model=bucket_model, device=d)
+        p = {"frontend": layer.init(torch.Generator().manual_seed(SEED)),
+             "head": ex.init_head(torch.Generator().manual_seed(SEED + 1), *layer.out_shape, device=d)}
+        leaves = [t.requires_grad_() for t in tree_leaves(p)]
+        images = torch.as_tensor(batch["images"], device=d)
+        labels = torch.as_tensor(batch["labels"], dtype=torch.int64, device=d)
+        loss = ex.loss_fn("hw_aware", layer, p, images, labels)
+        grads = torch.autograd.grad(loss, leaves)
+        got.append((float(loss.detach()), [g.cpu() for g in grads]))
+    (loss_d, g_d), (loss_h, g_h) = got
+    grad_err = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30)) for a, b in zip(g_d, g_h))
+    print(f"fpca training, card vs host at {FPCA_TRAIN_SMOKE} batch {FPCA_TRAIN_SMOKE_BATCH}: loss {loss_d:.7f} / "
+          f"{loss_h:.7f}, max gradient diff {grad_err:.2e} of max|grad| (limits {TRAIN_LOSS_TOL}, {TRAIN_GRAD_TOL})")
+    check(abs(loss_d - loss_h) <= TRAIN_LOSS_TOL, "fpca hw-aware loss differs between card and host")
+    check(grad_err <= TRAIN_GRAD_TOL, "fpca hw-aware gradients differ between card and host")
+    step("card vs host")
+
+    # ---- two full trainings --------------------------------------------------
+    spec = ex.SPEC
+    prog = fpca.FPCAProgram(spec=spec, circuit=fpca.CircuitParams(), adc=adc, enc=enc)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    layer = FPCAFrontend(prog, model=bucket_model, device=dev)
+    calib_s = time.perf_counter() - t0
+    print(f"fpca frontend {spec.image_h}x{spec.image_w}x3 -> {layer.out_shape} on {smi}: calibrate_gain "
+          f"{calib_s:.3f} s, gain {layer.gain:.4f}, r2 {layer.calibration_r2:.4f}")
+    data = SyntheticVWW((spec.image_h, spec.image_w))
+    _reset_fpca_counts()
+    trained, step_ms = {}, {}
+    for mode in ("hw_aware", "naive"):
+        trained[mode], hist = ex.train(mode, layer, data, ex.STEPS, ex.BATCH, seed=SEED)
+        check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist),
+              f"fpca {mode} training: a non-finite loss or grad norm")
+        step_ms[mode] = statistics.median(h["ms"] for h in hist[10:])
+        print(f"fpca {mode} training: {ex.STEPS} steps of batch {ex.BATCH}, loss "
+              f"{hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}, last grad norm {hist[-1]['grad_norm']:.4f}; "
+              f"{step_ms[mode]:.3f} ms a step (host clock, median after 10 warm-up steps) on {smi}")
+    check(fpca_conv_cuda.launches == 0, f"training launched fpca_conv_cuda {fpca_conv_cuda.launches} times: "
+          "it runs the dense differentiable path")
+    step("training")
+
+    # ---- deployed accuracy: the oracle, and the fpca kernel -----------------
+    acc = {mode: ex.deployed_accuracy(layer, trained[mode], data) for mode in trained}
+    acc_kernel = ex.deployed_accuracy(layer, trained["hw_aware"], data, backend="cuda")
+    n_batches = 512 // 128
+    check(fpca_conv_cuda.launches == n_batches,
+          f"deployment through the kernel: {fpca_conv_cuda.launches} fpca launches for {n_batches} batches")
+    gap = acc["hw_aware"] - acc["naive"]
+    print(f"fpca deployed accuracy on the circuit oracle (512 images): hw-aware {100 * acc['hw_aware']:.1f}%, "
+          f"naive {100 * acc['naive']:.1f}%, gap {100 * gap:+.1f} points; hw-aware through the fpca kernel "
+          f"{100 * acc_kernel:.1f}%")
+    check(acc["hw_aware"] >= FPCA_TRAIN_MIN_ACC, f"hw-aware accuracy on the oracle {acc['hw_aware']:.3f} < "
+          f"{FPCA_TRAIN_MIN_ACC}")
+    check(gap > 0, "the hw-aware network must beat the naive one on the oracle")
+    step("deployed accuracy")
+
+    # ---- the export, rebuilt and compiled --------------------------------------
+    hw = trained["hw_aware"]
+    x = torch.as_tensor(data.batch_at(10_000, 128)["images"], device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "fpca_cnn.npz")
+        ex.save_export(path, layer, hw, calib_images=data.batch_at(0, ex.BATCH)["images"])
+        bundle = dict(np.load(path))
+    meta = json.loads(bytes(bundle["meta"]).decode())
+    mprog = fpca_cnn.make_model_program(
+        fpca.FPCASpec(image_h=meta["image_h"], image_w=meta["image_w"], out_channels=meta["out_channels"],
+                      kernel=meta["kernel"], stride=meta["stride"], max_kernel=meta["max_kernel"]),
+        adc=fpca.ADCConfig(bits=meta["adc_bits"]), enc=fpca.WeightEncoding(n_levels=meta["nvm_levels"]),
+        input_scale=meta["input_scale"],
+    )
+    head_params = [{"w": bundle[f"head{i}_w"], "b": bundle[f"head{i}_b"]} for i in range(len(mprog.head))]
+    compiled = fpca.compile(mprog, backend="cuda", device=dev, weights=bundle["kernel"],
+                            bn_offset=bundle["bn_offset"], head_params=head_params, model=bucket_model)
+    logits = compiled.run(x)
+    counts = compiled.run_frontend_weighted(compiled.kernel, compiled.bn_offset, x)
+    with torch.no_grad():
+        acts = layer.apply(hw["frontend"], x, train=False, backend="cuda")
+        want_logits = ex.head_apply(hw["head"], acts)
+    torch.cuda.synchronize()
+    check(torch.equal(acts, counts * (adc.lsb * layer.gain)),
+          "the compiled export's counts must equal FPCAFrontend.apply(backend='cuda') counts bit for bit")
+    # the same counts on both sides (logit_bound's count term is 0): the
+    # logits differ by the head's f32 rounding alone
+    bound = 1e-4 * want_logits.abs() + 1e-4
+    print(f"fpca export: compiled run vs the trained head on the same counts, max|Δlogit| "
+          f"{float((logits - want_logits).abs().max()):.3e}")
+    check(bool(((logits - want_logits).abs() <= bound).all()), "the compiled export's logits leave the bound")
+    launches, designs = fpca_conv_cuda.launches, dict(fpca_conv_cuda.designs)
+    check(designs["wgmma"] == launches, f"fpca training path launches by design {designs}: every one on wgmma")
+    print(f"fpca training path: fpca_conv_cuda launches {launches} by design {designs} (0 in training, "
+          f"{n_batches} deploying, 3 for the export)")
+    step("export")
+
+    # ---- the kernel against its plain version at this path's shape ----------
+    kernel, bn = hw["frontend"]["kernel"], hw["frontend"]["bn_offset"].contiguous()
+    w_pos, w_neg = encode_weights(kernel, spec, enc)
+    tables = conv_tables(bucket_model, adc, spec.n_active_pixels, dev)
+    planes = weight_planes(w_pos.T, w_neg.T, tables)
+    patches = extract_windows(x, spec).reshape(-1, spec.n_active_pixels).contiguous()
+    check(fpca_kernel.design(patches, tables, spec.out_channels) == "wgmma",
+          "the deployed patch matrix must take the fpca tensor-core design")
+    got_c = fpca_conv_cuda(patches, planes, tables, bn)
+    want_c = fpca_conv_basis(patches, planes, tables, bn)
+    oracle = fpca_forward(x, kernel, spec, circuit=prog.circuit, adc=adc, enc=enc, bn_offset_counts=bn,
+                          mode="oracle")["counts"].reshape(got_c.shape)
+    torch.cuda.synchronize()
+    max_err, flips = count_diff(got_c, want_c)
+    err_o, flips_o = count_diff(got_c, oracle)
+    M = patches.shape[0]
+    print(f"fpca_conv kernel vs plain at the training path's M={M} (4-bit ADC, trained kernel): max|Δcount| "
+          f"{max_err}, flip share {flips:.3e} (limit: <= {COUNT_TOL} on < {FLIP_TOL}); deployed counts vs the "
+          f"circuit oracle's: max|Δcount| {err_o}, share off {flips_o:.3e}")
+    check(max_err <= COUNT_TOL and flips < FLIP_TOL, "fpca_conv kernel disagrees with its plain version at M=18432")
+    ms = time_cuda(lambda: fpca_conv_cuda(patches, planes, tables, bn))
+    plain_ms = time_cuda(lambda: fpca_conv_basis(patches, planes, tables, bn), iters=5)
+    bound_ms, parts, bytes_moved, _ = fpca_bound_ms(M, spec.n_active_pixels, spec.out_channels,
+                                                   planes["aw"].shape[1], bucket_model.n_buckets)
+    print(f"fpca_conv at M={M} (training path, 4-bit ADC) on {smi}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms (bytes {parts['bytes']:.4f}, bf16 passes {parts['tensor']:.4f}, fp32 "
+          f"{parts['fp32']:.4f}, MUFU {parts['mufu']:.4f})")
+    step("kernel check")
+
+    # ---- times ----------------------------------------------------------------
+    oracle_ms = host_ms(lambda: layer.apply(hw["frontend"], x, train=False))
+    kernel_eval_ms = host_ms(lambda: layer.apply(hw["frontend"], x, train=False, backend="cuda"))
+    synth_ms = host_ms(lambda: data.batch_at(0, ex.BATCH))
+    print(f"fpca evaluation of 128 frames on {smi} (host clock, median of 10): circuit oracle {oracle_ms:.3f} ms, "
+          f"through the fpca kernel {kernel_eval_ms:.3f} ms; SyntheticVWW batch of {ex.BATCH} (numpy, in "
+          f"every step) {synth_ms:.3f} ms")
+    profiles = {}
+    for mode in ("hw_aware", "naive"):
+        torch.cuda.reset_peak_memory_stats(dev)
+        device_ms, rows = profile_device(
+            lambda: ex.train(mode, layer, data, 1, ex.BATCH, params=trained[mode]), runs=1)
+        peak = torch.cuda.max_memory_allocated(dev)
+        profiles[mode] = {"device_ms": device_ms, "busy": device_ms / step_ms[mode], "peak_bytes": peak}
+        print(f"profile fpca {mode} step on {smi}: device time {device_ms:.4f} ms, busy "
+              f"{device_ms / step_ms[mode]:.1%} of the median step, peak memory {peak / 2**30:.2f} GiB")
+        for row in rows:
+            print(f"  {row}")
+    step("times")
+    seconds = step.report("fpca training phase")
+    wall = time.perf_counter() - t_phase
+    print(f"fpca training phase: {wall:.1f} s (target: under 60 s)")
+    return {
+        "launches": {"fpca_train": launches},
+        "accuracy": {**acc, "hw_aware_kernel": acc_kernel, "gap": gap},
+        "step_ms": step_ms,
+        "step_profile": profiles,
+        "calibration": {"seconds": calib_s, "gain": layer.gain, "r2": layer.calibration_r2},
+        "eval_128_ms": {"oracle": oracle_ms, "kernel": kernel_eval_ms},
+        "batch_synthesis_ms": synth_ms,
+        "kernel_at_18432": {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "max_abs_err": max_err,
+                            "flip_share": flips, "oracle_share_off": flips_o},
+        "card_vs_host": {"loss_diff": abs(loss_d - loss_h), "grad_err": grad_err},
+        "seconds_by_step": seconds,
+        "seconds": wall,
+    }
 
 
 # ---------------------------------------------------------------------------

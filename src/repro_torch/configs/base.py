@@ -69,6 +69,26 @@ class ModelConfig:
         if self.n_heads and not self.head_dim:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
 
+    @property
+    def attn_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def subquadratic(self) -> bool:
+        """Eligible for the long_500k cell (SSM / hybrid / sliding-window)."""
+        return self.family in ("ssm", "hybrid") or self.window is not None
+
+    @property
+    def has_decode(self) -> bool:
+        return True  # every config here is decoder-bearing (enc-dec included)
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: the top-k routed experts and
+        the shared ones): the N in 6*N*D (train) / 2*N*D (inference)."""
+        if self.family != "moe":
+            return self.param_count()
+        return dataclasses.replace(self, n_experts=self.top_k).param_count()
+
     def param_count(self) -> int:
         """Analytic parameter count (embeddings + blocks)."""
         d = self.d_model

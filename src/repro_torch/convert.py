@@ -9,6 +9,8 @@ The reference's objects export plain numpy (``BucketCurvefitModel.to_dict()``,
     graph = head_params_from_numpy({n: {k: np.asarray(v) for k, v in p.items()}
                                     for n, p in ref_graph_params.items()})
     kernel = tensor_from_numpy(np.asarray(ref_kernel))   # on the card by default
+    frontend = frontend_params_from_numpy({k: np.asarray(v) for k, v in
+                                           ref_frontend_params.items()})
     lm = lm_params_from_numpy(jax.tree.map(np.asarray, ref_lm_params))
     opt = adamw_state_from_numpy(*jax.tree.map(np.asarray, tuple(ref_adamw_state)))
     st = segment_state_from_numpy(**{k: np.asarray(v) for k, v in
@@ -32,6 +34,7 @@ from repro_torch.training.optimizer import AdamWState
 __all__ = [
     "adamw_state_from_numpy",
     "bucket_model_from_dict",
+    "frontend_params_from_numpy",
     "head_params_from_numpy",
     "lm_params_from_numpy",
     "segment_state_from_numpy",
@@ -48,6 +51,15 @@ def tensor_from_numpy(a: Any, *, device: str | torch.device | None = None) -> to
     """A float32 tensor (NVM kernel, BN offsets, images) on ``device`` (the
     card by default)."""
     return torch.tensor(np.asarray(a, np.float32), device=resolve_device(device))
+
+
+def frontend_params_from_numpy(
+    d: dict, *, device: str | torch.device | None = None
+) -> dict[str, torch.Tensor]:
+    """An ``FPCAFrontend``'s parameters from the reference layer's ``init``
+    dict: ``{"kernel": (c_o, k, k, c_i), "bn_offset": (c_o,)}``, float32 on
+    ``device`` (the card by default)."""
+    return {k: tensor_from_numpy(d[k], device=device) for k in ("kernel", "bn_offset")}
 
 
 def head_params_from_numpy(

@@ -19,6 +19,7 @@ deployment); prediction lifts them onto the device of its inputs.
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import numpy as np
 import torch
@@ -274,3 +275,12 @@ def predict_sigmoid(model: BucketCurvefitModel, I: torch.Tensor, W: torch.Tensor
         - 1.0
     )
     return (gates * _bucket_prediction(model, I, W)).sum(dim=-1)
+
+
+def make_predict_fn(
+    model: BucketCurvefitModel, differentiable: bool = True
+) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+    """``(I, W) -> V`` closure over ``model``: the sigmoid form when
+    ``differentiable``, the step-function bucket select otherwise."""
+    fn = predict_sigmoid if differentiable else predict_hard
+    return lambda I, W: fn(model, I, W)

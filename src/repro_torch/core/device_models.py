@@ -11,6 +11,7 @@ solved with ``fp_iters`` fixed-point iterations in float32.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 
@@ -30,6 +31,9 @@ class CircuitParams:
     kappa_r: float = 0.012      # metal-line degradation per mm per unit drive
     r_metal_mm: float = 0.0     # weight-die <-> pixel-die metal length [mm]
     fp_iters: int = 8           # fixed-point iterations (contracting; 8 >> enough)
+
+    def replace(self, **kw: Any) -> "CircuitParams":
+        return dataclasses.replace(self, **kw)
 
 
 def pixel_drive(I: torch.Tensor, W: torch.Tensor, params: CircuitParams) -> torch.Tensor:

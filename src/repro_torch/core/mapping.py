@@ -1,18 +1,31 @@
-"""FPCA spec and output geometry (paper §3.3--§3.4), pure numpy.
+"""FPCA spec, output geometry and cycle schedule (paper §3.3--§3.4), pure
+numpy.
 
 The physical kernel footprint is always the max ``n x n``: smaller logical
 kernels are written as zero weights (paper §3.4.1), so the output grid
-(Eq. 8) is computed with ``n``, not the logical ``k``.
+(Eq. 8) is computed with ``n``, not the logical ``k``.  Windows computed in
+the same cycle share a ``ColP`` phase and are spaced ``lcm(S, n)`` pixel
+columns apart, giving ``lcm(S, n) / S`` horizontal phases per output row:
+Eq. 1, ``N_C = 2 * h_o * c_o * lcm(S, n) / S``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Iterator
 
 import numpy as np
 
-__all__ = ["FPCASpec", "output_dims", "n_cycles", "active_window_mask", "n_cycles_with_skipping"]
+__all__ = [
+    "FPCASpec",
+    "Cycle",
+    "output_dims",
+    "n_cycles",
+    "schedule",
+    "active_window_mask",
+    "n_cycles_with_skipping",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +67,11 @@ class FPCASpec:
         """Pixels activated per window read — always the full n*n*in_ch region."""
         return self.max_kernel * self.max_kernel * self.in_channels
 
+    @property
+    def weights_per_column(self) -> int:
+        """NVM devices per pixel column in the weight die (§3.2)."""
+        return 2 * self.max_kernel**2 * self.in_channels * self.out_channels
+
 
 def output_dims(spec: FPCASpec) -> tuple[int, int]:
     """Eq. 8 with the *physical* kernel n (zero-padded logical kernels)."""
@@ -69,6 +87,48 @@ def n_cycles(spec: FPCASpec) -> int:
     """Eq. 1: ``N_C = 2 * h_o * c_o * lcm(S, n) / S``."""
     h_o, _ = output_dims(spec)
     return 2 * h_o * spec.out_channels * spec.horizontal_phases
+
+
+@dataclasses.dataclass(frozen=True)
+class Cycle:
+    """One read cycle of the rolling-shutter convolution schedule."""
+
+    sign: int                   # +1: CH_i phase, -1: CH_i_bar phase
+    channel: int                # output channel (CH line index)
+    out_row: int                # output row r (RS group)
+    phase: int                  # ColP phase p in [0, lcm(S,n)/S)
+    window_cols: np.ndarray     # output-column indices computed in parallel
+
+    stride: int = 1
+    max_kernel: int = 5
+
+    @property
+    def colp_line(self) -> int:
+        """ColP line pulled up in this cycle: which kernel column is mapped
+        onto the first pixel column of each window group (§3.4.3)."""
+        return (self.phase * self.stride) % self.max_kernel
+
+
+def schedule(spec: FPCASpec) -> Iterator[Cycle]:
+    """Yield the full cycle schedule; ``len(list(...)) == n_cycles(spec)``.
+
+    Parallel windows of a cycle: output columns ``w`` whose horizontal start
+    ``x = w * S`` satisfies ``x ≡ p*S (mod lcm(S, n))``; their ``n``-wide
+    column groups are disjoint, so they can share the cycle (§3.4.3).
+    """
+    h_o, w_o = output_dims(spec)
+    n, s = spec.max_kernel, spec.stride
+    period = math.lcm(s, n)
+    all_cols = np.arange(w_o)
+    for channel in range(spec.out_channels):
+        for out_row in range(h_o):
+            for phase in range(spec.horizontal_phases):
+                cols = all_cols[(all_cols * s) % period == phase * s]
+                for sign in (+1, -1):
+                    yield Cycle(
+                        sign=sign, channel=channel, out_row=out_row, phase=phase,
+                        window_cols=cols, stride=s, max_kernel=n,
+                    )
 
 
 def active_window_mask(spec: FPCASpec, block_mask: np.ndarray | None) -> np.ndarray:

@@ -1,6 +1,6 @@
 """Deterministic, resumable synthetic data (the port's own copy of the
-reference's ``data/pipeline.py`` LM stream and moving-object video; numpy
-only, so both packages see the same bits).
+reference's ``data/pipeline.py`` LM stream, VWW-like images and
+moving-object video; numpy only, so both packages see the same bits).
 
 * **Stateless addressing**: every batch is a pure function of
   ``(seed, step)``; the only pipeline state is the step cursor saved in the
@@ -13,7 +13,8 @@ only, so both packages see the same bits).
 
 The LM stream is a noisy affine-recurrence language (the next token mostly
 determined by the previous one), so cross-entropy falls measurably within
-a few hundred steps, with no downloads.  ``SyntheticMovingObject`` is the
+a few hundred steps, with no downloads.  ``SyntheticVWW`` is the FPCA
+training example's labelled images.  ``SyntheticMovingObject`` is the
 streaming frontend's video: a static scene with one orbiting blob, each
 frame a pure function of ``(seed, t)``.
 """
@@ -27,7 +28,7 @@ from typing import Any, Iterator
 
 import numpy as np
 
-__all__ = ["LMStreamConfig", "SyntheticLM", "SyntheticMovingObject", "PrefetchIterator"]
+__all__ = ["LMStreamConfig", "SyntheticLM", "SyntheticVWW", "SyntheticMovingObject", "PrefetchIterator"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +74,46 @@ class SyntheticLM:
         while True:
             yield self.batch_at(step)
             step += 1
+
+
+class SyntheticVWW:
+    """Visual-wake-word-like image stream for the FPCA frontend examples.
+
+    Both classes place blobs of the *same total brightness* on the same
+    clutter; what differs is **shape**: 'person' = two vertically stacked
+    blobs (head over torso), 'no person' = one wide blob.  Global brightness
+    is jittered per image, so intensity statistics do not separate the
+    classes: the classifier has to learn spatial features through the FPCA
+    frontend, which is exactly the regime where the analog non-linearity and
+    quantisation matter.
+    """
+
+    def __init__(self, image_hw: tuple[int, int] = (60, 60), seed: int = 0):
+        self.h, self.w = image_hw
+        self.seed = seed
+
+    def batch_at(self, step: int, batch: int) -> dict[str, np.ndarray]:
+        rng = np.random.default_rng((self.seed, step))
+        h, w = self.h, self.w
+        imgs = rng.uniform(0.0, 0.30, (batch, h, w, 3)).astype(np.float32)
+        labels = rng.integers(0, 2, batch).astype(np.int32)
+        yy, xx = np.mgrid[0:h, 0:w]
+        for i in range(batch):
+            cy = rng.integers(h // 3, 2 * h // 3)
+            cx = rng.integers(w // 3, 2 * w // 3)
+            color = rng.uniform(0.6, 1.0, 3)
+            if labels[i]:
+                # head-over-torso: two stacked blobs
+                parts = ((h // 10, 0, h // 8, 0.45), (-h // 8, 0, h // 14, 0.45))
+            else:
+                # single wide blob, matched total energy
+                parts = ((0, 0, h // 6, 0.40),)
+            for (dy, dx, r, amp) in parts:
+                d2 = (yy - cy - dy) ** 2 + (xx - cx - dx) ** 2
+                imgs[i] += (amp * np.exp(-d2 / (2.0 * r * r)))[..., None] * color
+            # brightness jitter kills intensity shortcuts
+            imgs[i] *= rng.uniform(0.7, 1.1)
+        return {"images": np.clip(imgs, 0.0, 1.0), "labels": labels}
 
 
 class SyntheticMovingObject:

@@ -1,7 +1,9 @@
 """Pluggable execution backends for the FPCA frontend.
 
 Each :class:`Backend` names one way of evaluating a programmed array and
-carries ``make_executable``: a factory returning a fresh
+carries ``conv``, the one-shot batched forward that
+:func:`repro_torch.core.fpca_sim.fpca_forward` dispatches fused backends
+through, and ``make_executable``: a factory returning a fresh
 ``(images, kernel, bn_offset[, window_mask]) -> counts`` closure whose
 constant tables live (and die) with it.  :class:`repro_torch.fpca.CompiledFrontend`
 holds those closures in its bounded LRU cache, beside the whole-model
@@ -18,12 +20,15 @@ Built-ins:
   host, and the one backend that lowers the int8 transfer LUT of
   ``precision="int8"`` model programs (``quant_transfer``).
 * ``"reference"`` — the dense oracle (predict_sigmoid + updown_readout):
-  every window evaluated, skipped ones zeroed after the fact.
+  every window evaluated, skipped ones zeroed after the fact; not fused,
+  and the one differentiable backend (training runs it through
+  ``fpca_forward``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Any, Callable
 
@@ -34,7 +39,7 @@ from repro_torch.core.adc import ADCConfig, updown_readout
 from repro_torch.core.curvefit import BucketCurvefitModel
 from repro_torch.core.fpca_sim import WeightEncoding, _analog_read, encode_weights, extract_windows
 from repro_torch.core.mapping import FPCASpec, output_dims
-from repro_torch.kernels.fpca_conv.ops import make_fpca_conv_executable
+from repro_torch.kernels.fpca_conv.ops import fpca_conv, make_fpca_conv_executable
 from repro_torch.training.tree import tree_leaves, tree_map
 
 __all__ = [
@@ -50,6 +55,13 @@ __all__ = [
 class Backend:
     """One registered execution backend.
 
+    ``fused`` marks backends that serve the calibrated bucket-sigmoid model
+    with hard ADC rounding through a single fused call (deployment-mode
+    serving of the sensor model); non-fused backends run the dense
+    simulation and may be ``differentiable``.  ``conv`` is a fused
+    backend's one-shot entry point, ``conv(images, kernel, model, *, spec,
+    adc, enc, bn_offset, window_mask=None) -> counts``.
+
     ``bucket_sensitive`` marks backends whose executables differ per
     region-skip row bucket; the dense oracle serves every bucket with one
     executable, so caches collapse its key.  ``quant_transfer`` marks
@@ -59,6 +71,9 @@ class Backend:
 
     name: str
     make_executable: Callable
+    conv: Callable | None = None
+    fused: bool = True
+    differentiable: bool = False
     bucket_sensitive: bool = True
     quant_transfer: bool = False
     description: str = ""
@@ -299,6 +314,9 @@ _REGISTRY: dict[str, Backend] = {}
 def register_backend(
     name: str,
     *,
+    conv: Callable | None = None,
+    fused: bool = True,
+    differentiable: bool = False,
     bucket_sensitive: bool = True,
     quant_transfer: bool = False,
     description: str = "",
@@ -318,6 +336,9 @@ def register_backend(
         _REGISTRY[name] = Backend(
             name=name,
             make_executable=make_executable,
+            conv=conv,
+            fused=fused,
+            differentiable=differentiable,
             bucket_sensitive=bucket_sensitive,
             quant_transfer=quant_transfer,
             description=description,
@@ -346,6 +367,11 @@ def default_backend_name(device: torch.device) -> str:
     return "cuda" if device.type == "cuda" else "basis"
 
 
+def _fused_conv(impl: str) -> Callable:
+    """``Backend.conv`` of a fused backend: the one-shot fpca kernel call."""
+    return functools.partial(fpca_conv, impl=impl)
+
+
 def _fused_factory(impl: str) -> Callable:
     def make_executable(
         model: BucketCurvefitModel,
@@ -367,11 +393,13 @@ def _fused_factory(impl: str) -> Callable:
 
 register_backend(
     "cuda",
+    conv=_fused_conv("cuda"),
     description="hand-written CUDA kernel for sm_90a (plain PyTorch version on CPU tensors)",
 )(_fused_factory("cuda"))
 
 register_backend(
     "basis",
+    conv=_fused_conv("basis"),
     quant_transfer=True,
     description="the kernel's basis-bank math in plain PyTorch",
 )(_fused_factory("basis"))
@@ -379,6 +407,8 @@ register_backend(
 
 @register_backend(
     "reference",
+    fused=False,
+    differentiable=True,
     bucket_sensitive=False,   # dense eval + post-hoc mask: one executable serves all buckets
     description="dense oracle (parity reference; evaluates every window)",
 )
@@ -401,8 +431,9 @@ def _reference_executable(
     def _counts(images, kernel, bn_offset):
         w_pos, w_neg = encode_weights(kernel, spec, enc, hard=True)
         I = extract_windows(images, spec)
-        v_pos = _analog_read(I, w_pos, "bucket_sigmoid", model)
-        v_neg = _analog_read(I, w_neg, "bucket_sigmoid", model)
+        n = spec.n_active_pixels
+        v_pos = _analog_read(I, w_pos, "bucket_sigmoid", None, model, n)
+        v_neg = _analog_read(I, w_neg, "bucket_sigmoid", None, model, n)
         return updown_readout(v_pos, v_neg, adc, bn_offset, hard=True)
 
     def run(images, kernel, bn_offset, window_mask=None):

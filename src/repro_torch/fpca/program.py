@@ -285,6 +285,7 @@ class ActivationSpec:
         return ("act", self.fn)
 
 
+LayerSpec = ConvSpec | PoolSpec | DenseSpec | ActivationSpec
 _LAYER_SPECS = (ConvSpec, PoolSpec, DenseSpec, ActivationSpec)
 
 

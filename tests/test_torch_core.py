@@ -154,10 +154,10 @@ def test_analog_read_bucket_modes(bucket_model):
     rng = np.random.default_rng(5)
     I = rng.uniform(0, 1, (3, 4, 75)).astype(np.float32)
     W = rng.uniform(0, 1, (6, 75)).astype(np.float32)
-    got = fpca_sim._analog_read(torch.from_numpy(I), torch.from_numpy(W), "bucket_sigmoid", model)
+    got = fpca_sim._analog_read(torch.from_numpy(I), torch.from_numpy(W), "bucket_sigmoid", None, model, 75)
     want = j_sim._analog_read(jnp.asarray(I), jnp.asarray(W), "bucket_sigmoid", None,
                               bucket_model, 75)
     assert got.shape == (3, 4, 6)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=5e-6)
-    with pytest.raises(ValueError, match="unknown bucket mode"):
-        fpca_sim._analog_read(torch.from_numpy(I), torch.from_numpy(W), "oracle", model)
+    with pytest.raises(ValueError, match="unknown mode"):
+        fpca_sim._analog_read(torch.from_numpy(I), torch.from_numpy(W), "bucket_linear", None, model, 75)

@@ -37,6 +37,11 @@ Tolerances, each kernel against its plain PyTorch version on the card:
 - segments: a segment replayed from its CUDA graph equal to the same body
   run eagerly on the card, and to per-tick ``stream()``, bit for bit (the
   same kernels on the same inputs, in the same order).
+- the FPCA training path: ``fpca_forward(backend="cuda")`` one
+  tensor-core launch within the fpca limit of ``backend="basis"``; one
+  training step of the example's network and ``calibrate_gain``, card vs
+  host: loss, grad norm and gain within 1e-5, parameters within 1e-4 of
+  max|value| (f32 sums in another order).
 - multi-camera serving: a stacked C = 16 fan-out launch (SIMT design)
   within the fpca limit of the plain version and of each config's
   tensor-core launch, and bit for bit each config's own SIMT launch (one
@@ -48,7 +53,9 @@ Tolerances, each kernel against its plain PyTorch version on the card:
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import math
+from pathlib import Path
 
 import pytest
 import torch
@@ -56,6 +63,9 @@ import torch
 from repro_torch import fpca
 from repro_torch.core.adc import ADCConfig
 from repro_torch.core.curvefit import fit_bucket_model
+from repro_torch.core.fpca_sim import calibrate_gain, fpca_forward
+from repro_torch.core.frontend import FPCAFrontend
+from repro_torch.data.pipeline import SyntheticVWW
 from repro_torch.configs import ARCHS, reduce_for_smoke
 from repro_torch.kernels.flash_attention.bwd import (
     flash_attention_bwd_cuda,
@@ -883,6 +893,77 @@ def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         ssd_intra_chunk_cuda(xbar, Bh.transpose(3, 4).contiguous().transpose(3, 4), Ch, cum)
     with pytest.raises(ValueError, match="q <= 128"):
         ssd_intra_chunk_cuda(*_ssd_chunk_inputs(1, 1, 130, 2, 16, 8, 1, cuda))
+
+
+# ---------------------------------------------------------------------------
+# the FPCA training path on the card
+# ---------------------------------------------------------------------------
+
+
+def _train_example():
+    path = Path(__file__).resolve().parents[1] / "examples" / "train_fpca_cnn_torch.py"
+    spec = importlib.util.spec_from_file_location("_train_fpca_cnn_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_fpca_forward_shim_launches_the_kernel_once_and_matches_basis(cuda, model, bits):
+    """``fpca_forward(backend="cuda")`` (the path a deployed FPCAFrontend
+    takes) is one tensor-core launch, within the fpca limit of the plain
+    version (``backend="basis"``) on the same card."""
+    spec = fpca.FPCASpec(image_h=60, image_w=60, out_channels=8, kernel=5, stride=5)
+    g = torch.Generator().manual_seed(bits)
+    images = torch.rand((4, 60, 60, 3), generator=g).to(cuda)
+    kernel = (torch.randn((8, 5, 5, 3), generator=g) * 0.3).to(cuda)
+    bn = torch.randint(0, 4, (8,), generator=g).float().to(cuda)
+    kw = dict(model=model, adc=ADCConfig(bits=bits), mode="bucket_sigmoid", bn_offset_counts=bn)
+    before, designs = fpca_conv_cuda.launches, dict(fpca_conv_cuda.designs)
+    with pytest.warns(DeprecationWarning):
+        got = fpca_forward(images, kernel, spec, backend="cuda", **kw)["counts"]
+    torch.cuda.synchronize()
+    assert fpca_conv_cuda.launches == before + 1
+    assert fpca_conv_cuda.designs == {**designs, "wgmma": designs["wgmma"] + 1}
+    with pytest.warns(DeprecationWarning):
+        want = fpca_forward(images, kernel, spec, backend="basis", **kw)["counts"]
+    diff = (got - want).abs()
+    assert float(diff.max()) <= 1.0 and float((diff > 0).float().mean()) < 0.05
+
+
+def test_fpca_training_step_card_vs_host(cuda, model):
+    """One AdamW step of the example's hw-aware network at smoke size (20x20
+    frames, 4 channels, batch 4, 4-bit ADC, 8 NVM levels) from the same
+    initial parameters: loss and grad norm within 1e-5, every parameter
+    within 1e-4 of its max|value| (f32 sums in another order through the
+    bucket model)."""
+    ex = _train_example()
+    prog = fpca.FPCAProgram(spec=fpca.FPCASpec(image_h=20, image_w=20, out_channels=4, kernel=5, stride=5),
+                            adc=ADCConfig(bits=4), enc=fpca.WeightEncoding(n_levels=8))
+    data = SyntheticVWW((20, 20))
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        layer = FPCAFrontend(prog, model=model, device=dev)
+        p0 = {"frontend": layer.init(torch.Generator().manual_seed(0)),
+              "head": ex.init_head(torch.Generator().manual_seed(1), *layer.out_shape, device=dev)}
+        before = fpca_conv_cuda.launches
+        params, hist = ex.train("hw_aware", layer, data, 1, 4, params=p0)
+        assert fpca_conv_cuda.launches == before
+        out.append((params, hist[0]))
+    (p_d, h_d), (p_h, h_h) = out
+    assert abs(h_d["loss"] - h_h["loss"]) <= 1e-5
+    assert abs(h_d["grad_norm"] - h_h["grad_norm"]) <= 1e-5 * max(1.0, h_h["grad_norm"])
+    for a, b in zip(tree_leaves(p_d), tree_leaves(p_h)):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+def test_calibrate_gain_card_vs_host(cuda):
+    spec = fpca.FPCASpec(image_h=60, image_w=60, out_channels=8, kernel=5, stride=5)
+    for kw in ({}, {"enc": fpca.WeightEncoding(n_levels=8), "adc": ADCConfig(bits=4)}):
+        gain, r2 = calibrate_gain(spec, device=cuda, **kw)
+        want_gain, want_r2 = calibrate_gain(spec, device="cpu", **kw)
+        assert gain == pytest.approx(want_gain, rel=1e-5)
+        assert r2 == pytest.approx(want_r2, rel=1e-5)
 
 
 # ---------------------------------------------------------------------------

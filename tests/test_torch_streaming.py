@@ -402,9 +402,10 @@ def test_compact_rows_matches_nonzero():
 
 
 def test_port_imports_no_jax_and_nothing_of_the_reference():
-    """Every module of ``repro_torch`` (the serving modules among them) and
-    ``chip_smoke.py``, imported in a fresh interpreter, leave neither
-    ``jax`` nor ``repro`` in sys.modules."""
+    """Every module of ``repro_torch`` (the serving modules among them),
+    ``chip_smoke.py`` and the example it runs
+    (``examples/train_fpca_cnn_torch.py``), imported in a fresh interpreter,
+    leave neither ``jax`` nor ``repro`` in sys.modules."""
     serving = [f"repro_torch.serving.{m}" for m in
                ("fpca_pipeline", "streaming", "events", "saliency", "fleet", "observe")]
     code = (
@@ -413,6 +414,7 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "chip_smoke.load_train_example()\n"
         f"missing = sorted(set({serving!r}) - set(sys.modules))\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(missing + bad)\n"
