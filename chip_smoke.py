@@ -84,6 +84,22 @@ then, through the same kernel, the model zoo and int8 head serving:
    kernel counts bit for bit; holds the kernel against its plain version
    at M = 18,432; prints step times, a step's device time, busy share and
    peak memory, evaluation times and the calibration;
+7f. imports each example twin (``examples/*_torch.py``) and calls its
+   ``main`` at its defaults on the card, the kernel counts set to 0 just
+   before and read just after: quickstart (the oracle, no kernel),
+   region_skipping, serve_frontend, serve_fpca_cnn (with ``--weights``, the
+   bundle 7e exported, and with ``--precision int8``), stream_video and
+   adaptive_stream each reach the fpca kernel, every launch on the
+   tensor-core design but adaptive_stream's channel-stacked C = 12 ones
+   (SIMT); serve_lm at its smoke default launches the flash kernel once a
+   layer; prints each run's seconds and launches; then runs each twin
+   again on the host (``--device cpu``: the plain path, on the bucket
+   model the card run fitted) and holds the card's numbers against the
+   host's: counts within the fpca limit, logits within the bound their
+   counts give (int8: equal counts, equal logits within 1%), kept windows,
+   cache and pipeline stats, fan-out counts, servo thresholds, cycles and
+   energies equal; serve_lm's greedy tokens against the host's prefill of
+   the same weights and tokens, teacher-forced, where the margin is clear;
 
 then the language-model serving path (``repro_torch.launch.serve``):
 
@@ -101,7 +117,31 @@ then the language-model serving path (``repro_torch.launch.serve``):
    that computes the same function (and the SSD kernel's SIMT design beside
    its tensor-core design), and profiles one prefill;
 
-then, with zamba2's weights freed, the training path
+then dense serving (``repro_torch.launch.serve``), each model's weights
+freed before the next:
+
+11a. smoke qwen3-1.7b and h2o-danube-1.8b (f32, 2 layers, danube's window
+   cut to 32 under a 200-token prompt): card kernels against the host's
+   plain path, prefill and decode;
+11b. qwen3-1.7b at full width and depth (28 layers, d_model 2048, 16 heads
+   over 8 KV heads of 128, tied embeddings, qk-norm) in bf16 from a seeded
+   CUDA generator: 8 requests of 4096 tokens in waves of 4, 32 greedy
+   tokens each; h2o-danube-1.8b at full width and depth (24 layers,
+   d_model 2560, 32 heads over 8 KV heads of 80, sliding window 4096): one
+   wave of 2 prompts of 8192 tokens, 16 greedy tokens, its decode cache a
+   4096-slot ring; checks one flash launch per layer per prefill, all on
+   the tensor-core design, none in decode, and decode teacher-forced on the
+   served tokens against a fresh prefill of the prompt plus the tokens so
+   far (bf16 bound; greedy tokens where the margin is clear), the decode's
+   K/V cache (the ring past the window) against the fresh prefill's, and a
+   control: a decode step at a position off by one must fail that cache
+   check; holds the flash kernel against its plain version on inputs
+   captured from a served prefill, times it beside its bound and the
+   library call that also skips the masked blocks (SDPA's causal GQA form;
+   ``flex_attention`` with a sliding-window block mask under a window), and
+   profiles one prefill and one decode step;
+
+then, with the served weights freed, the training path
 (``repro_torch.training.train_step``):
 
 12. holds dense training through the kernels on the card against the plain
@@ -258,6 +298,18 @@ FLASH_RTOL, FLASH_ATOL, SSD_NORMWISE = 2.0**-7, 1e-4, 2e-5
 # port on the card vs port on the host, smoke config in f32 (sums in
 # another order through 3 layers)
 SMOKE_TOL = 1e-4
+
+# Dense LM serving at full width and depth, arch -> (requests, batch, prompt,
+# greedy tokens): qwen3-1.7b 8 x 4096 tokens in waves of 4 (D = 128,
+# 16:8 GQA); h2o-danube-1.8b one wave of 2 x 8192, past its 4096-token
+# sliding window (D = 80, 32:8 GQA)
+DENSE_SERVING = {"qwen3-1.7b": (8, 4, 4096, 32), "h2o-danube-1.8b": (2, 2, 8192, 16)}
+# decode against a fresh prefill of the prompt plus the generated tokens
+# (bf16): logits within DECODE_ULPS bf16 ulps of max|logit|, and the greedy
+# token equal wherever the prefill's top-2 margin exceeds twice that; every
+# K/V slot of the decode's cache within CACHE_ULPS bf16 ulps of the layer's
+# max|value| in the prefill's
+DECODE_ULPS, CACHE_ULPS = 4, 8
 
 # Training path: qwen3-1.7b at full width and depth, 4 AdamW steps of
 # 8 x 4096 tokens in 2 microbatches of 4 sequences, full remat
@@ -572,10 +624,23 @@ def main() -> None:
           "the script without them)")
     fpca_entry["fpca_train"] = fpca_train_phase(dev, smi, bucket_model)
     by_path.update(fpca_entry["fpca_train"].pop("launches"))
+    twins = twins_phase(dev, export=fpca_entry["fpca_train"].pop("export_bundle"))
+    by_path["example twins"] = sum(t["fpca_launches"] for t in twins)
     fpca_entry["launches"] = sum(by_path.values())
+    fpca_entry["example_twins"] = twins
     gc.collect()
     torch.cuda.empty_cache()
     flash_entry, ssd_entry = lm_phase(dev, smi)
+    flash_by_path = {f"{LM_ARCH} serving": flash_entry["launches"],
+                     "example twins": sum(t["flash_launches"] for t in twins)}
+    flash_entry["served_dense"] = {}
+    for arch, (requests, batch, prompt, tokens) in DENSE_SERVING.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        flash_entry["served_dense"][arch] = dense_phase(dev, smi, arch, requests, batch, prompt, tokens)
+        flash_by_path[f"{arch} serving"] = flash_entry["served_dense"][arch].pop("launches")
+    flash_entry["launches"] = sum(flash_by_path.values())
+    flash_entry["launches_by_path"] = flash_by_path
     gc.collect()
     torch.cuda.empty_cache()
     bwd_entries, flash_entry["trained"] = train_phase(dev, smi)
@@ -1630,11 +1695,10 @@ def fleet_phase(dev: torch.device, smi: str, models: dict, cams: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def load_train_example():
-    """``examples/train_fpca_cnn_torch.py`` as a module (the examples are
-    scripts, not a package)."""
-    path = ROOT / "examples" / "train_fpca_cnn_torch.py"
-    spec = importlib.util.spec_from_file_location("train_fpca_cnn_torch", path)
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (the examples are scripts, not a
+    package)."""
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -1654,7 +1718,7 @@ def fpca_train_phase(dev: torch.device, smi: str, bucket_model) -> dict:
     counts bit for bit.  Returns the numbers and ``launches``."""
     t_phase = time.perf_counter()
     step = Laps()
-    ex = load_train_example()
+    ex = load_example("train_fpca_cnn_torch")
     cpu = torch.device("cpu")
     adc, enc = fpca.ADCConfig(bits=ex.ADC_BITS), fpca.WeightEncoding(n_levels=ex.NVM_LEVELS)
 
@@ -1820,7 +1884,262 @@ def fpca_train_phase(dev: torch.device, smi: str, bucket_model) -> dict:
         "card_vs_host": {"loss_diff": abs(loss_d - loss_h), "grad_err": grad_err},
         "seconds_by_step": seconds,
         "seconds": wall,
+        "export_bundle": bundle,
     }
+
+
+# ---------------------------------------------------------------------------
+# the example twins (examples/*_torch.py), each at its defaults on the card
+# ---------------------------------------------------------------------------
+
+
+def _twin_checks(name: str, res: dict, fpca_launches: int, designs: dict, flash: int) -> None:
+    """What each twin must show on the card: twins 2-6 reach the fpca
+    kernel, every launch on the tensor-core design but adaptive_stream's
+    channel-stacked C = 12 ones (SIMT takes more than 8 channels);
+    quickstart runs the oracle and no kernel; serve_lm launches the flash
+    kernel once per layer in its prefill."""
+    if name == "quickstart":
+        check(fpca_launches == 0, f"quickstart launched the fpca kernel {fpca_launches} times")
+        check(res["max_err"] < 0.03 and np.isfinite(res["counts"]).all(), "quickstart: model error or counts")
+        return
+    if name == "serve_lm":
+        check(res["prefill_launches"] == (2, 0) and flash == 2 and res["finite"],
+              f"serve_lm: launches (flash, ssd) per prefill {res['prefill_launches']}, finite {res['finite']}")
+        return
+    check(fpca_launches >= 1, f"{name}: the twin never launched fpca_conv_cuda")
+    if name == "adaptive_stream":
+        check(designs["simt"] == fpca_launches == res["fanout_batches"],
+              f"adaptive_stream: {fpca_launches} launches by design {designs}, {res['fanout_batches']} stacked calls")
+        return
+    check(designs["wgmma"] == fpca_launches, f"{name}: fpca launches by design {designs}, every one must take the "
+          "tensor-core design")
+    if name == "region_skipping":
+        for img in res["images"]:
+            check(img["zeroed"] and img["max_count_diff"] <= COUNT_TOL,
+                  f"region_skipping: kept region off the oracle by {img['max_count_diff']} or skipped not zeroed")
+    elif name == "serve_frontend":
+        check((res["requests"], res["batches"], res["cache_misses"]) == (96, 6, 3), "serve_frontend: pipeline stats")
+    elif name == "serve_fpca_cnn":
+        check(res["backend"] == "cuda" and np.isfinite(res["logits"]).all(), "serve_fpca_cnn: backend or logits")
+
+
+# what a twin returns that is not compared with its host run: times, the
+# backend's name, kernel launch counts, the kept region against the oracle
+# on the same device (checked in _twin_checks), the int8-vs-f32 parity, and
+# telemetry counts that depend on the process (the registry's lines) or the
+# device (spans); logits and classes are compared in _cnn_logits_vs_host
+TWIN_UNCOMPARED = {"cold_s", "warm_s", "gated_s", "dense_s", "prefill_s", "decode_s", "backend",
+                   "prefill_launches", "identical", "max_count_diff", "parity", "events", "spans",
+                   "snapshot_lines", "threshold_line", "logits", "pipeline_logits", "classes", "class"}
+# keys under which a twin returns SS-ADC counts, and floats it computes on
+# its device (within 1e-4 of their value)
+TWIN_COUNT_KEYS, TWIN_DEVICE_FLOATS = {"counts", "handle_counts", "results"}, {"max_err"}
+
+
+@contextlib.contextmanager
+def shared_fits():
+    """Route the bucket-model fits of the compiler and the pipeline, and of
+    every twin module the caller points at the yielded function, through
+    one cache keyed by the fit's arguments (the device aside): a twin's
+    host run reuses the model its card run fitted, so the two runs compare
+    the kernel with its plain version on one model."""
+    from repro_torch.fpca import executable
+    from repro_torch.serving import fpca_pipeline
+
+    cache: dict = {}
+
+    def fit(*args, device=None, **kw):
+        key = repr((args, sorted(kw.items())))
+        if key not in cache:
+            cache[key] = fit_bucket_model(*args, device=device, **kw)
+        return cache[key]
+
+    modules = (executable, fpca_pipeline)
+    real = [m.fit_bucket_model for m in modules]
+    for m in modules:
+        m.fit_bucket_model = fit
+    try:
+        yield fit
+    finally:
+        for m, f in zip(modules, real):
+            m.fit_bucket_model = f
+
+
+def _twin_leaves(card, host, path: tuple = ()):
+    """(path, card leaf, host leaf) of two returned trees of one shape."""
+    if isinstance(card, dict):
+        check(isinstance(host, dict) and card.keys() == host.keys(), f"twin result keys differ at {path}")
+        for k in card:
+            if k not in TWIN_UNCOMPARED:
+                yield from _twin_leaves(card[k], host[k], path + (k,))
+    elif isinstance(card, (list, tuple)):
+        check(isinstance(host, (list, tuple)) and len(card) == len(host), f"twin result lengths differ at {path}")
+        for i, (a, b) in enumerate(zip(card, host)):
+            yield from _twin_leaves(a, b, path + (i,))
+    else:
+        yield path, card, host
+
+
+def twin_vs_host(name: str, card: dict, host: dict) -> dict:
+    """A twin's card run against its host run: counts within COUNT_TOL on
+    fewer than FLIP_TOL of them (pooled over the run), device-computed
+    floats within 1e-4 of their value, every other number (kept windows,
+    cache and pipeline stats, fan-out counts, servo thresholds and EMAs,
+    cycles and energies) equal."""
+    n_counts, flipped, worst, exact = 0, 0, 0.0, 0
+    for path, a, b in _twin_leaves(card, host):
+        where = f"{name}: {'/'.join(map(str, path))}"
+        if isinstance(a, (np.ndarray, torch.Tensor)) and any(k in TWIN_COUNT_KEYS for k in path):
+            a, b = torch.as_tensor(np.asarray(_host_np(a))), torch.as_tensor(np.asarray(_host_np(b)))
+            check(a.shape == b.shape, f"{where}: counts {tuple(a.shape)} vs {tuple(b.shape)}")
+            d = (a.float() - b.float()).abs()
+            n_counts, flipped = n_counts + d.numel(), flipped + int((d > 0).sum())
+            worst = max(worst, float(d.max()) if d.numel() else 0.0)
+        elif path and path[-1] in TWIN_DEVICE_FLOATS:
+            check(abs(a - b) <= 1e-4 * abs(b), f"{where}: {a} on the card, {b} on the host")
+        else:
+            same = np.array_equal(_host_np(a), _host_np(b)) if isinstance(a, (np.ndarray, torch.Tensor)) else a == b
+            check(bool(same), f"{where}: {a!r} on the card, {b!r} on the host")
+            exact += 1
+    flips = flipped / max(n_counts, 1)
+    check(worst <= COUNT_TOL and flips < FLIP_TOL, f"{name}: counts on the card vs the host: max|Δcount| {worst}, "
+          f"flip share {flips:.3e} (limit: <= {COUNT_TOL} on < {FLIP_TOL})")
+    return {"counts": n_counts, "max_count_diff": worst, "flip_share": flips, "exact": exact}
+
+
+def _host_np(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+
+def _cnn_logits_vs_host(card: dict, host: dict, spec, head: list[dict] | None, scale: float) -> dict:
+    """serve_fpca_cnn's logits (the batch, the pipeline's frame 0, every
+    stream tick) on the card against the host's.  The head reads a batch
+    row's counts, and a tick's effective map: its kept windows' counts
+    patched over the map of the tick before, so a count flipped on an
+    earlier tick stays in the map until its window is read again.  f32:
+    within the bound those count differences give (``logit_bound``, as the
+    fpca serving phase holds served logits against the oracle), plus 1e-4
+    of the value.  int8 (``head`` None): within INT8_LOGIT_RTOL of
+    max|logit| wherever the head's input is equal on both (a flipped count
+    may move a requantised input a step: those rows are counted, not
+    compared).  Classes equal wherever the host's top-2 margin exceeds
+    twice the bound."""
+    def diff(a, b) -> torch.Tensor:
+        return torch.as_tensor(a).float() - torch.as_tensor(b).float()
+
+    rows = [(diff(card["counts"], host["counts"]), card["logits"], host["logits"]),
+            (diff(card["counts"][:1], host["counts"][:1]), card["pipeline_logits"][None], host["pipeline_logits"][None])]
+    d_eff = None
+    for c, h in zip(card["stream"]["ticks"], host["stream"]["ticks"]):
+        keep = torch.as_tensor(active_window_mask(spec, c["block_mask"]))[..., None]
+        dc = diff(c["counts"], h["counts"])
+        d_eff = dc if d_eff is None else torch.where(keep, dc, d_eff)
+        rows.append((d_eff[None], c["logits"][None], h["logits"][None]))
+    worst, frames, skipped = 0.0, 0, 0
+    for dc, cl, hl in rows:
+        cl, hl = torch.as_tensor(cl), torch.as_tensor(hl)
+        if head is None:
+            same = (dc == 0).reshape(dc.shape[0], -1).all(1)
+            bound = torch.full_like(hl, INT8_LOGIT_RTOL * float(hl.abs().max()))
+            skipped += int((~same).sum())
+            cl, hl, bound = cl[same], hl[same], bound[same]
+        else:
+            bound = logit_bound(head, dc, scale) + 1e-4 * hl.abs() + 1e-4
+        d = (cl - hl).abs()
+        worst, frames = max(worst, float(d.max()) if d.numel() else 0.0), frames + hl.shape[0]
+        check(bool((d <= bound).all()), f"serve_fpca_cnn: logits on the card off the host's by {worst}")
+        top2 = hl.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * bound.max(-1).values
+        check(bool((cl.argmax(-1) == hl.argmax(-1))[clear].all()), "serve_fpca_cnn: a class with a clear margin "
+              "differs between the card and the host")
+    return {"logit_rows": frames, "logit_rows_flipped": skipped, "max_logit_diff": worst}
+
+
+def _lm_vs_host(res: dict, cfg, params: dict, prompts: np.ndarray) -> dict:
+    """serve_lm's greedy tokens on the card (the flash kernel in its
+    prefill) against the host's plain path, teacher-forced: a prefill on
+    the host of the prompts plus the card's first t tokens must pick the
+    card's token t, wherever its top-2 margin exceeds 2 SMOKE_TOL."""
+    host = _to(params, torch.device("cpu"))
+    seqs = torch.as_tensor(res["sequences"]).long()
+    toks = torch.as_tensor(prompts).long()
+    ties = 0
+    for t in range(seqs.shape[1]):
+        logits, _ = forward_prefill(host, cfg, torch.cat([toks, seqs[:, :t]], 1))
+        top2 = logits.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * SMOKE_TOL
+        check(bool((logits.argmax(-1) == seqs[:, t])[clear].all()),
+              f"serve_lm: greedy token {t} on the card differs from the host's on the same prefix")
+        ties += int((~clear).sum())
+    return {"tokens": seqs.numel(), "ties": ties}
+
+
+def twins_phase(dev: torch.device, export: dict) -> list[dict]:
+    """Import each example twin and call its ``main`` at its defaults on
+    the card, with the kernel counts set to 0 just before and read just
+    after: ``serve_fpca_cnn_torch.py`` twice, with ``--weights`` (the
+    bundle ``fpca_train_phase`` exported) and with ``--precision int8``;
+    adaptive_stream's telemetry files go to a temporary directory.  Then
+    run each twin again on the host (``--device cpu``, the plain path, one
+    bucket-model fit shared with the card run) and hold the card's numbers
+    against the host's; serve_lm's greedy tokens are held against the
+    host's plain prefill of the same weights, teacher-forced.  Returns one
+    row per run: seconds, launches and the comparison."""
+    t_phase = time.perf_counter()
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp, shared_fits() as fit:
+        bundle = os.path.join(tmp, "fpca_cnn_export.npz")
+        np.savez(bundle, **export)
+        runs = [("quickstart", []), ("region_skipping", []), ("serve_frontend", []),
+                ("serve_fpca_cnn", ["--weights", bundle]), ("serve_fpca_cnn", ["--precision", "int8"]),
+                ("stream_video", []), ("adaptive_stream", ["--telemetry", os.path.join(tmp, "telemetry.jsonl")]),
+                ("serve_lm", [])]
+        for name, argv in runs:
+            mod = load_example(f"{name}_torch")
+            if hasattr(mod, "fit_bucket_model"):
+                mod.fit_bucket_model = fit
+            lm: dict = {}
+            if name == "serve_lm":
+                init, prompts = mod.init_params, mod.make_prompts
+                mod.init_params = lambda cfg, d, seed: lm.setdefault("params", init(cfg, d, seed))
+                mod.make_prompts = lambda cfg, *a: lm.setdefault("prompts", (cfg, prompts(cfg, *a)))[1]
+            torch.cuda.synchronize()
+            _reset_fpca_counts()
+            _zero_launch_counts()
+            t0 = time.perf_counter()
+            res = mod.main(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches, designs, flash = fpca_conv_cuda.launches, dict(fpca_conv_cuda.designs), flash_attention_cuda.launches
+            label = " ".join([f"{name}_torch.py"] + [a if a.startswith("--") else Path(a).name for a in argv])
+            print(f"example twin {label}: {seconds:.2f} s, fpca_conv_cuda launches {launches} by design {designs}, "
+                  f"flash_attention_cuda launches {flash}")
+            _twin_checks(name, res, launches, designs, flash)
+
+            t0 = time.perf_counter()
+            if name == "serve_lm":
+                cfg, prompts = lm["prompts"]
+                cmp = _lm_vs_host(res, cfg, lm["params"], prompts)
+            else:
+                host_mod = load_example(f"{name}_torch")
+                if hasattr(host_mod, "fit_bucket_model"):
+                    host_mod.fit_bucket_model = fit
+                host_argv = [a.replace("telemetry.jsonl", "telemetry_host.jsonl") for a in argv]
+                host = host_mod.main(host_argv + ["--device", "cpu"])
+                cmp = twin_vs_host(name, res, host)
+                if name == "serve_fpca_cnn":
+                    cpu = torch.device("cpu")
+                    prog, params = (host_mod.load_export(bundle, cpu) if "--weights" in argv
+                                    else host_mod.fresh_network(60, cpu))   # the twin at its default --image-h
+                    int8 = "--precision" in argv
+                    cmp.update(_cnn_logits_vs_host(res, host, prog.spec, None if int8 else params["head_params"],
+                                                   prog.input_scale))
+            print(f"  vs its host run ({time.perf_counter() - t0:.1f} s): {cmp}")
+            rows.append({"run": label, "seconds": seconds, "fpca_launches": launches, "fpca_designs": designs,
+                         "flash_launches": flash, "vs_host": cmp})
+    print(f"example twins phase: {time.perf_counter() - t_phase:.1f} s")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1866,10 +2185,11 @@ def live_pairs(sq: int, sk: int, causal: bool, window: int | None) -> int:
     return int(np.clip(hi - lo + 1, 0, None).sum())
 
 
-def lm_phase(dev: torch.device, smi: str) -> list[dict]:
-    """Serve zamba2-7b at full width; check and time its two kernels."""
-    # ---- 10a. the kernel path against the host's plain path, smoke config ----
-    small = reduce_for_smoke(ARCHS[LM_ARCH])
+def smoke_vs_host(dev: torch.device, arch: str) -> tuple[float, float]:
+    """The kernel path on the card against the host's plain path on the
+    narrow smoke config of ``arch`` (f32): a 200-token prefill (past a
+    smoke window of 32) and one decode step; returns their max|Δlogit|."""
+    small = reduce_for_smoke(ARCHS[arch])
     host = init_model(small, generator=torch.Generator().manual_seed(SEED), device="cpu")
     card = _to(host, dev)
     toks = torch.as_tensor(np.random.default_rng(SEED).integers(0, small.vocab_size, (2, 200)))
@@ -1880,10 +2200,41 @@ def lm_phase(dev: torch.device, smi: str) -> list[dict]:
     d_host, _ = forward_decode(host, small, nxt, c_host, 200)
     err_p = float((l_card.cpu() - l_host).abs().max())
     err_d = float((d_card.cpu() - d_host).abs().max())
-    print(f"smoke {LM_ARCH} (f32, 3 layers) card kernels vs host plain: prefill max|Δlogit| {err_p:.2e}, "
-          f"decode {err_d:.2e}")
-    check(err_p <= SMOKE_TOL and err_d <= SMOKE_TOL, "smoke LM on the card disagrees with the host")
-    del card, c_card
+    print(f"smoke {arch} (f32, {small.n_layers} layers, window {small.window}) card kernels vs host plain: "
+          f"prefill max|Δlogit| {err_p:.2e}, decode {err_d:.2e}")
+    check(err_p <= SMOKE_TOL and err_d <= SMOKE_TOL, f"smoke {arch} on the card disagrees with the host")
+    return err_p, err_d
+
+
+def profile_serving(arch: str, params: dict, cfg, prompts: torch.Tensor, res: dict, tokens: int) -> tuple[float, float]:
+    """Device time and busy share of one prefill of ``prompts`` (against
+    the median served prefill of ``res``) and of one decode step (against
+    the mean served step), with their split by kernel; returns both device
+    times in ms."""
+    S = prompts.shape[1]
+    out: list = []
+    prefill_dev, rows = profile_device(
+        lambda: out.append(forward_prefill(params, cfg, prompts, max_len=S + tokens + 8)), runs=1)
+    prefill_ms = statistics.median(res["prefill_ms"])
+    print(f"profile one {arch} prefill: device time {prefill_dev:.1f} ms, busy {prefill_dev / prefill_ms:.1%} of the "
+          f"median served prefill ({prefill_ms:.1f} ms)")
+    for row in rows:
+        print(f"  {row}")
+    logits, cache = out.pop()
+    nxt = logits.argmax(-1, keepdim=True)
+    decode_dev, rows = profile_device(lambda: forward_decode(params, cfg, nxt, cache, S), runs=3)
+    step_ms = statistics.median(res["decode_ms"]) / (tokens - 1)
+    print(f"profile one {arch} decode step: device time {decode_dev:.2f} ms, busy {decode_dev / step_ms:.1%} of the "
+          f"mean served decode step ({step_ms:.2f} ms)")
+    for row in rows:
+        print(f"  {row}")
+    return prefill_dev, decode_dev
+
+
+def lm_phase(dev: torch.device, smi: str) -> list[dict]:
+    """Serve zamba2-7b at full width; check and time its two kernels."""
+    # ---- 10a. the kernel path against the host's plain path, smoke config ----
+    smoke_vs_host(dev, LM_ARCH)
 
     # ---- 8. init at full width ---------------------------------------------
     cfg = ARCHS[LM_ARCH]
@@ -2009,24 +2360,8 @@ def lm_phase(dev: torch.device, smi: str) -> list[dict]:
           f"achieved {s_bytes / ssd_ms / 1e6:.1f} GB/s, {100 * max(s_tb, s_tt) / ssd_ms:.1f}% of the bound")
     del seen, q, k, v, qt, kt, vt, xbar, Bh, Ch, cum
 
-    toks = torch.as_tensor(prompts[:LM_BATCH], device=dev)
-    out: list = []
-    device_ms, rows = profile_device(lambda: out.append(forward_prefill(params, cfg, toks, max_len=LM_PROMPT + 8)),
-                                     runs=1)
-    prefill_ms = statistics.median(res["prefill_ms"])
-    print(f"profile one prefill: device time {device_ms:.1f} ms, busy {device_ms / prefill_ms:.1%} of the "
-          f"median served prefill ({prefill_ms:.1f} ms)")
-    for row in rows:
-        print(f"  {row}")
-    logits, cache = out.pop()
-    nxt = logits.argmax(-1, keepdim=True)
-    device_ms, rows = profile_device(lambda: forward_decode(params, cfg, nxt, cache, LM_PROMPT), runs=3)
-    step_ms = statistics.median(res["decode_ms"]) / (LM_TOKENS - 1)
-    print(f"profile one decode step: device time {device_ms:.2f} ms, busy {device_ms / step_ms:.1%} of the "
-          f"mean served decode step ({step_ms:.2f} ms)")
-    for row in rows:
-        print(f"  {row}")
-    del params, logits, cache, nxt, out   # zamba2's weights and caches: the training phase needs the room
+    profile_serving(LM_ARCH, params, cfg, torch.as_tensor(prompts[:LM_BATCH], device=dev), res, LM_TOKENS)
+    del params   # zamba2's weights: the dense serving and training phases need the room
 
     return [
         {
@@ -2061,6 +2396,226 @@ def lm_phase(dev: torch.device, smi: str) -> list[dict]:
             "library_ms": None,
         },
     ]
+
+
+# ---------------------------------------------------------------------------
+# dense LM serving (qwen3-1.7b, h2o-danube-1.8b) through the flash kernel
+# ---------------------------------------------------------------------------
+
+
+def library_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int | None) -> tuple:
+    """One PyTorch call computing the causal (windowed) GQA attention of
+    ``q``/``k``/``v`` (B, S, H, D) that, like the kernel, skips the masked
+    blocks; returns (its name, the call).  Without a window, SDPA's causal
+    GQA form (its flash backend skips the blocks above the diagonal).  With
+    one, ``flex_attention`` compiled with a sliding-window block mask: SDPA
+    takes no window, and a dense band mask makes it compute every pair.  The
+    block mask is built and the call compiled here, outside the timed call."""
+    F = torch.nn.functional
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    H, KV, S = q.shape[2], k.shape[2], q.shape[1]
+    if window is None:
+        return "sdpa", lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=H != KV)
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    def band(b, h, qi, ki):
+        return (qi >= ki) & (qi - ki < window)
+
+    mask = create_block_mask(band, None, None, S, k.shape[1], device=q.device)
+    flex = torch.compile(flex_attention, dynamic=False)
+    flex(qt, kt, vt, block_mask=mask, enable_gqa=H != KV)
+    return "flex_attention", lambda: flex(qt, kt, vt, block_mask=mask, enable_gqa=H != KV)
+
+
+def cache_ulps(cache: dict, ref: dict) -> float:
+    """The largest K/V difference between a decode's cache and a fresh
+    prefill's of the same tokens and layout, in bf16 ulps of the prefill
+    layer's max|value| (each layer's K and V apart)."""
+    worst = 0.0
+    for name in ("k", "v"):
+        for a, b in zip(cache["layers"][name], ref["layers"][name]):
+            worst = max(worst, float((a.float() - b.float()).abs().max()) / bf16_ulps(float(b.abs().max()), 1))
+    return worst
+
+
+def decode_vs_prefill(params: dict, cfg, prompts: torch.Tensor, gen: torch.Tensor, steps: tuple) -> dict:
+    """Prefill ``prompts`` (B, S), then decode the served greedy tokens
+    ``gen`` (B, T) teacher-forced; at each step in ``steps`` hold the decode
+    logits against a fresh prefill of the prompt plus ``gen[:, :step + 1]``
+    (within DECODE_ULPS bf16 ulps of its max|logit|; its greedy token
+    wherever the top-2 margin exceeds twice that), and every decode step's
+    greedy token against the served one.  After the last step, every K/V
+    slot the decode wrote (the ring past a window) against the fresh
+    prefill's cache, within CACHE_ULPS; and a control: one decode step at a
+    position off by one (its RoPE and its cache slot) must leave both the
+    cache bound and the logit bound."""
+    S, T = prompts.shape[1], gen.shape[1]
+    max_len = S + T + 8
+    logits, cache = forward_prefill(params, cfg, prompts, max_len=max_len)
+    check(torch.equal(logits.argmax(-1), gen[:, 0].long()), "the prefill's greedy tokens differ from the served ones")
+    kept, out = {}, {}
+    for i in range(T - 1):
+        logits, cache = forward_decode(params, cfg, gen[:, i : i + 1].long(), cache, S + i)
+        check(torch.equal(logits.argmax(-1), gen[:, i + 1].long()),
+              f"decode step {i}: greedy tokens differ from the served ones")
+        if i in steps:
+            kept[i] = logits.clone()
+    for i in steps:
+        ref, ref_cache = forward_prefill(params, cfg, torch.cat([prompts, gen[:, : i + 1].long()], 1), max_len=max_len)
+        top = float(ref.abs().max())
+        tol = bf16_ulps(top, DECODE_ULPS)
+        err = float((kept[i] - ref).abs().max())
+        top2 = ref.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * tol
+        same = kept[i].argmax(-1) == ref.argmax(-1)
+        print(f"decode step {i} (position {S + i + 1}) vs a fresh prefill of {S + i + 1} tokens: max|Δlogit| "
+              f"{err:.4f} (limit {DECODE_ULPS} bf16 ulps of max|logit| {top:.3f}: {tol:.4f}); greedy tokens equal in "
+              f"{int(same.sum())}/{same.numel()}, margin > {2 * tol:.4f} in {int(clear.sum())}")
+        check(err <= tol, f"decode step {i} leaves the bf16 bound against a fresh prefill")
+        check(bool(same[clear].all()), f"decode step {i}: a greedy token with a clear margin differs from the prefill's")
+        out[i] = {"max_abs_err": err, "tol": tol, "greedy_equal": int(same.sum()), "clear_margin": int(clear.sum())}
+        if i == T - 2:
+            out["cache_ulps"] = cache_ulps(cache, ref_cache)
+            del cache
+        if i == 0:
+            _, ctl = forward_prefill(params, cfg, prompts, max_len=max_len)
+            ctl_logits, ctl = forward_decode(params, cfg, gen[:, :1].long(), ctl, S + 1)
+            out["control"] = {"cache_ulps": cache_ulps(ctl, ref_cache),
+                              "max_abs_err": float((ctl_logits - ref).abs().max())}
+            del ctl, ctl_logits
+        del ref_cache
+    ctl = out["control"]
+    print(f"decode's K/V cache after {T - 1} steps vs a fresh prefill's: {out['cache_ulps']:.2f} bf16 ulps of each "
+          f"layer's max|value| (limit {CACHE_ULPS}); control, one decode step at position {S + 1} in place of {S}: "
+          f"cache {ctl['cache_ulps']:.1f} ulps, max|Δlogit| {ctl['max_abs_err']:.4f} (logit limit {out[0]['tol']:.4f})")
+    check(out["cache_ulps"] <= CACHE_ULPS, "the decode's K/V cache leaves the bound against a fresh prefill's")
+    check(ctl["cache_ulps"] > CACHE_ULPS and ctl["max_abs_err"] > out[0]["tol"],
+          "the cache or the logit check cannot see a decode step at the wrong position")
+    return out
+
+
+def dense_phase(dev: torch.device, smi: str, arch: str, n_requests: int, batch: int, prompt: int,
+                tokens: int) -> dict:
+    """Serve a dense decoder at full width and depth through
+    ``launch.serve``; check one flash launch per layer per prefill, all on
+    the tensor-core design, none in decode; decode against a fresh prefill;
+    the flash kernel against its plain version on inputs captured from a
+    served prefill; time it beside its bound and the library call, and profile a
+    prefill and a decode step."""
+    t_phase = time.perf_counter()
+    step = Laps()
+    smoke_err = smoke_vs_host(dev, arch)
+    step("smoke")
+
+    # ---- init at full width and depth, warm-up prefill capturing q/k/v ----
+    cfg = ARCHS[arch]
+    params = init_model(cfg, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"{arch} on the card: {n_params:,} parameters ({cfg.dtype}), {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}:{cfg.n_kv_heads} heads of {cfg.head_dim}, window {cfg.window}")
+    prompts = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (n_requests, prompt))
+    with capture_first_calls() as seen:
+        logits, _cache = forward_prefill(params, cfg, torch.as_tensor(prompts[:batch], device=dev))
+        torch.cuda.synchronize()
+    del logits, _cache
+    step("init")
+
+    # ---- the main path, with the launch counts -------------------------------
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_launch_counts()
+    ssd_intra_chunk_cuda.launches = 0
+    res = serve(params, cfg, prompts, batch=batch, tokens=tokens, device=dev)
+    launches, designs = flash_attention_cuda.launches, dict(flash_attention_cuda.designs)
+    peak = torch.cuda.max_memory_allocated(dev)
+    for i, p_ms in enumerate(res["prefill_ms"]):
+        print(f"{arch} wave {i}: prefill {p_ms:.1f} ms ({batch}x{prompt} tokens), {tokens - 1} decode steps "
+              f"{res['decode_ms'][i]:.1f} ms, launches (flash, ssd) per prefill {res['prefill_launches'][i]}, "
+              f"in decode {res['decode_launches'][i]}")
+    print(f"served {arch}: {n_requests} requests x {tokens} tokens on {smi}: decode {res['decode_tok_s']:.1f} tok/s, "
+          f"end to end {res['e2e_tok_s']:.1f} tok/s, max_memory_allocated {peak / 2**30:.2f} GiB; flash launches "
+          f"{launches} by design {designs}")
+    check(designs["wgmma"] == launches, f"{arch}: flash launches by design {designs}, every served (bf16) launch "
+          "must take the tensor-core design")
+    for i in range(len(res["prefill_ms"])):
+        check(res["prefill_launches"][i] == (cfg.n_layers, 0),
+              f"{arch} wave {i}: (flash, ssd) launches per prefill {res['prefill_launches'][i]}, "
+              f"expected ({cfg.n_layers}, 0)")
+        check(res["decode_launches"][i] == (0, 0), f"{arch} wave {i}: kernel launches in decode")
+    seqs = res["sequences"]
+    check(seqs.shape == (n_requests, tokens), f"{arch}: sequences {seqs.shape}")
+    check(int(seqs.min()) >= 0 and int(seqs.max()) < cfg.vocab_size, f"{arch}: generated tokens out of range")
+    check(res["finite"], f"{arch}: non-finite logits")
+    step("serve")
+
+    # ---- decode against a fresh prefill (one wave) ---------------------------
+    dvp = decode_vs_prefill(params, cfg, torch.as_tensor(prompts[:batch], device=dev),
+                            torch.as_tensor(seqs[:batch], device=dev), steps=(0, tokens - 2))
+    step("decode vs prefill")
+
+    # ---- the kernel against its plain version, timed beside its bound --------
+    q, k, v, kw = seen.pop("flash")
+    check(kw["window"] == cfg.window and kw["causal"], f"{arch}: captured flash call {kw}")
+    check(flash_fwd.design(q, k, v) == "wgmma", f"{arch}: the served q/k/v must take the tensor-core design")
+    got = flash_attention_cuda(q, k, v, causal=True, window=cfg.window)
+    want = attend_blockwise(q, k, v, causal=True, window=cfg.window)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    flash_err = float(diff.max())
+    print(f"flash kernel vs plain blockwise at q {tuple(q.shape)} k {tuple(k.shape)} window {cfg.window}: "
+          f"max|Δ| {flash_err:.3e}")
+    check(bool((diff <= FLASH_ATOL + FLASH_RTOL * want.float().abs()).all()),
+          f"{arch}: flash kernel disagrees with its plain version beyond one bf16 ulp")
+    lib_name, lib = library_attention(q, k, v, cfg.window)
+    lib_err = float((lib().transpose(1, 2).float() - want.float()).abs().max())
+    del got, want, diff
+    B, S, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    ms = time_cuda(lambda: flash_attention_cuda(q, k, v, causal=True, window=cfg.window))
+    plain_ms = time_cuda(lambda: attend_blockwise(q, k, v, causal=True, window=cfg.window), iters=5)
+    lib_ms = time_cuda(lib)
+    ms2 = time_cuda(lambda: flash_attention_cuda(q, k, v, causal=True, window=cfg.window))
+    f_bytes = q.element_size() * (2 * B * S * H * D + 2 * B * Sk * KV * D)
+    pairs = B * H * live_pairs(S, Sk, True, cfg.window)
+    f_ops = 4 * D * pairs
+    f_tb, f_to = f_bytes / PEAK_BYTES_PER_S * 1e3, f_ops / PEAK_BF16_FLOP_PER_S * 1e3
+    rate = flash_rates(statistics.median([ms, ms2]), f_ops, pairs, D)
+    print(f"flash at {arch}'s served shape B={B} S={S} H={H} KV={KV} D={D} window {cfg.window} {q.dtype} on {smi}: "
+          f"kernel {ms:.4f} / {ms2:.4f} ms, plain {plain_ms:.4f} ms, {lib_name} {lib_ms:.4f} ms (max|Δ| vs plain "
+          f"{lib_err:.3e}), bound {max(f_tb, f_to):.4f} ms (bytes {f_tb:.4f}, bf16 ops {f_to:.4f}); achieved "
+          f"{rate[0]:.1f} TFLOP/s on the required FLOP, {rate[1]:.1f} on the executed FLOP (head dim padded to "
+          f"{64 if D <= 64 else 128})")
+    del q, k, v, lib, seen
+    step("kernel")
+
+    device_ms, dec_ms = profile_serving(arch, params, cfg, torch.as_tensor(prompts[:batch], device=dev), res, tokens)
+    del params
+    step("profile")
+    seconds = step.report(f"{arch} serving phase")
+    print(f"{arch} serving phase: {time.perf_counter() - t_phase:.1f} s")
+    return {
+        "launches": launches,
+        "designs": designs,
+        "shape": {"B": B, "S": S, "H": H, "KV": KV, "D": D, "window": cfg.window},
+        "max_abs_err": flash_err,
+        "ms": statistics.median([ms, ms2]),
+        "plain_ms": plain_ms,
+        "bound_ms": max(f_tb, f_to),
+        "bound_by": "bytes" if f_tb >= f_to else "operations",
+        "library_ms": lib_ms,
+        "library": lib_name,
+        "tflops_required": rate[0],
+        "tflops_executed": rate[1],
+        "prefill_ms": res["prefill_ms"],
+        "decode_tok_s": res["decode_tok_s"],
+        "e2e_tok_s": res["e2e_tok_s"],
+        "peak_bytes": peak,
+        "prefill_device_ms": device_ms,
+        "decode_step_device_ms": dec_ms,
+        "decode_vs_prefill": dvp,
+        "smoke_err": smoke_err,
+        "seconds_by_step": seconds,
+    }
 
 
 # ---------------------------------------------------------------------------

@@ -4,6 +4,12 @@
         --batch 4 --prompt-len 4096 --tokens 32 --requests 8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
         --smoke --device cpu --batch 2 --prompt-len 24 --tokens 4 --requests 3
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
+        --batch 4 --prompt-len 4096 --tokens 32 --requests 8
+
+``--arch`` takes every served configuration: zamba2-7b (hybrid) and the
+dense decoders qwen3-1.7b, h2o-danube-1.8b (a 4096-token sliding window:
+its cache is a ring of that many slots), yi-9b and phi3-medium-14b.
 
 Random weights from ``--seed``; requests of random tokens from the same
 seed.  Each wave of ``--batch`` prompts runs one batched prefill (the last

@@ -6,14 +6,16 @@
 * ``forward_decode(params, cfg, token, cache, pos)`` -> (logits, cache)
 * ``init_cache(cfg, batch, max_len, device=)``      -> cache dict
 
-Ported: serving for ``hybrid`` (Zamba2: a Mamba2 backbone with ONE shared
-attention+SwiGLU block applied every ``hybrid_attn_period`` layers) and
-training for ``dense`` (pre-norm GQA + SwiGLU decoder, e.g. Qwen3).  The
-parameter and cache layouts are the reference's: dense ``blocks`` leaves
-are stacked ``(n_layers, ...)``; hybrid ``mamba_main`` leaves
-``(n_groups, period, ...)``, ``mamba_tail`` leaves ``(n_tail, ...)``,
-``shared_attn`` is one block.  The reference's ``lax.scan`` over stacked
-layers is a Python loop over views of the stacked tensors.  Full-sequence
+Ported: serving for ``dense`` (pre-norm GQA + SwiGLU decoder, e.g. Qwen3,
+with sliding windows as ring-buffer caches) and ``hybrid`` (Zamba2: a
+Mamba2 backbone with ONE shared attention+SwiGLU block applied every
+``hybrid_attn_period`` layers), training for ``dense``.  The parameter and
+cache layouts are the reference's: dense ``blocks`` leaves and the
+``layers`` K/V cache are stacked ``(n_layers, ...)``; hybrid
+``mamba_main`` leaves ``(n_groups, period, ...)``, ``mamba_tail`` leaves
+``(n_tail, ...)``, ``shared_attn`` is one block.  The reference's
+``lax.scan`` over stacked layers is a Python loop over views of the
+stacked tensors.  Full-sequence
 attention goes through :func:`repro_torch.models.attention.flash_attention`
 at every sequence length (the flash kernels on the card), and every Mamba2
 layer through the SSD kernel.
@@ -51,17 +53,17 @@ __all__ = ["init_model", "forward_prefill", "forward_decode", "forward_train", "
            "REMAT_POLICIES"]
 
 # what each family has in the port so far
-SERVED_FAMILIES = ("hybrid",)
+SERVED_FAMILIES = ("dense", "hybrid")
 TRAINED_FAMILIES = ("dense",)
-REMAT_POLICIES = ("none", "full")   # the reference's "dots" policies: ROADMAP queue A item 7
+REMAT_POLICIES = ("none", "full")   # the reference's "dots" policies: ROADMAP.md queue A item 3
 
 
 def _require(cfg: ModelConfig, families: tuple[str, ...], what: str) -> None:
     if cfg.family not in families:
         raise NotImplementedError(
-            f"{what} for family {cfg.family!r} is not ported yet (ROADMAP.md queue A item 7: "
-            f"hybrid training, dense serving and the moe/ssm/vlm/encdec families come in later "
-            f"slices); serving is ported for {SERVED_FAMILIES}, training for {TRAINED_FAMILIES}"
+            f"{what} for family {cfg.family!r} is not ported yet (ROADMAP.md queue A item 3: "
+            f"hybrid training and the moe/ssm/vlm/encdec families come in later slices); "
+            f"serving is ported for {SERVED_FAMILIES}, training for {TRAINED_FAMILIES}"
         )
 
 
@@ -159,13 +161,16 @@ def _attn_block_seq(
 
 
 def _attn_block_decode(
-    p: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict, pos: int
+    p: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict, pos: int, position: torch.Tensor
 ) -> torch.Tensor:
     """One-token attention block against a KV cache (B, Smax, KV, D),
-    written in place; sliding-window archs use a ring buffer (Smax = window)."""
+    written in place; sliding-window archs use a ring buffer (Smax = window).
+    ``position`` is ``pos`` as a (1,) tensor on the activations' device,
+    built once per decode step: a host-to-device copy per layer would block
+    the host."""
     B = x.shape[0]
     h = rms_norm(p["ln1"], x, cfg.norm_eps)
-    q, k, v = _project_qkv(p["attn"], h, torch.tensor([pos], device=x.device), cfg)
+    q, k, v = _project_qkv(p["attn"], h, position, cfg)
     s_max = cache["k"].shape[1]
     ring = cfg.window is not None and s_max == cfg.window
     slot = pos % s_max if ring else min(pos, s_max - 1)
@@ -184,6 +189,17 @@ def _mamba_layer(p_l: dict, h: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Te
 
 def _stack(caches: list[dict]) -> dict:
     return {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
+
+
+def _decoder_stack_seq(params: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict) -> torch.Tensor:
+    """The dense decoder over a whole prompt; writes each layer's K/V
+    straight into ``cache`` (``init_cache``'s ``layers``) and returns x."""
+    positions = torch.arange(x.shape[1], device=x.device)
+    for i, p_l in enumerate(_unstack(params["blocks"], cfg.n_layers)):
+        x, c = _attn_block_seq(p_l, x, cfg, positions)
+        for name in ("k", "v"):
+            _fill_kv(cache[name][i], c[name])
+    return x
 
 
 def _hybrid_stack_seq(params: dict, cfg: ModelConfig, x: torch.Tensor) -> tuple[torch.Tensor, dict]:
@@ -222,41 +238,51 @@ def init_cache(
     dev = resolve_device(device)
     dt = torch_dtype(cfg.dtype)
     kv_len = min(max_len, cfg.window) if cfg.window else max_len
+
+    def kv(lead: int) -> dict:
+        shape = (lead, batch, kv_len, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dt, device=dev), "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+    if cfg.family == "dense":
+        return {"layers": kv(cfg.n_layers)}
     period, n_groups, n_tail = _hybrid_layout(cfg)
     shapes = mamba2_state_shape(cfg, batch)
-    kv_shape = (n_groups, batch, kv_len, cfg.n_kv_heads, cfg.head_dim)
 
     def mamba(lead):
         return {"conv": torch.zeros(lead + shapes["conv"], dtype=dt, device=dev),
                 "ssm": torch.zeros(lead + shapes["ssm"], dtype=torch.float32, device=dev)}
 
-    out = {"groups": {"mamba": mamba((n_groups, period)),
-                      "attn": {"k": torch.zeros(kv_shape, dtype=dt, device=dev),
-                               "v": torch.zeros(kv_shape, dtype=dt, device=dev)}}}
+    out = {"groups": {"mamba": mamba((n_groups, period)), "attn": kv(n_groups)}}
     if n_tail:
         out["tail"] = mamba((n_tail,))
     return out
 
 
-def _pad_kv(caches: dict, cfg: ModelConfig, max_len: int) -> dict:
-    """Pad prefill K/V (L, B, S, KV, D) to the serving cache length.
+def _fill_kv(dst: torch.Tensor, x: torch.Tensor) -> None:
+    """Write prefill K/V (..., S, KV, D) into a zeroed serving cache
+    (..., kv_len, KV, D).
 
     Sliding-window caches are ring buffers indexed ``slot = pos % window``:
     the kept tail of the prompt is scattered to its ring slots so later
     decode writes land consistently.
     """
+    S, kv_len = x.shape[-3], dst.shape[-3]
+    if S > kv_len:   # ring buffer: token t -> slot t % window
+        slots = torch.arange(S - kv_len, S, device=x.device) % kv_len
+        dst[..., slots, :, :] = x[..., S - kv_len :, :, :]
+    else:
+        dst[..., :S, :, :] = x
+
+
+def _pad_kv(caches: dict, cfg: ModelConfig, max_len: int) -> dict:
+    """Pad prefill K/V (L, B, S, KV, D) to the serving cache length."""
     kv_len = min(max_len, cfg.window) if cfg.window else max_len
 
     def pad(x: torch.Tensor) -> torch.Tensor:
-        S = x.shape[2]
-        if S == kv_len:
+        if x.shape[2] == kv_len:
             return x
-        out = torch.zeros(x.shape[:2] + (kv_len,) + x.shape[3:], dtype=x.dtype, device=x.device)
-        if S > kv_len:   # ring buffer: token t -> slot t % window
-            slots = torch.arange(S - kv_len, S, device=x.device) % kv_len
-            out[:, :, slots] = x[:, :, S - kv_len :]
-        else:
-            out[:, :, :S] = x
+        out = x.new_zeros(x.shape[:2] + (kv_len,) + x.shape[3:])
+        _fill_kv(out, x)
         return out
 
     return {k: pad(v) for k, v in caches.items()}
@@ -271,6 +297,11 @@ def forward_prefill(
     _require(cfg, SERVED_FAMILIES, "forward_prefill")
     x = embed(params["embed"], tokens).to(torch_dtype(cfg.dtype))
     max_len = max_len or x.shape[1]
+    if cfg.family == "dense":
+        cache = init_cache(cfg, x.shape[0], max_len, device=x.device)
+        x = _decoder_stack_seq(params, cfg, x, cache["layers"])
+        x = rms_norm(params["final_norm"], x, cfg.norm_eps)
+        return _unembed(params, cfg, x[:, -1:, :])[:, 0, :], cache
     x, caches = _hybrid_stack_seq(params, cfg, x)
     cache = {"groups": {"mamba": caches["groups"]["mamba"],
                         "attn": _pad_kv(caches["groups"]["attn"], cfg, max_len)}}
@@ -296,6 +327,13 @@ def forward_decode(
     without autograd."""
     _require(cfg, SERVED_FAMILIES, "forward_decode")
     x = embed(params["embed"], token).to(torch_dtype(cfg.dtype))
+    position = torch.tensor([pos], device=x.device)
+    if cfg.family == "dense":
+        layers = cache["layers"]
+        for i, p_l in enumerate(_unstack(params["blocks"], cfg.n_layers)):
+            x = _attn_block_decode(p_l, x, cfg, _index(layers, i), pos, position)
+        x = rms_norm(params["final_norm"], x, cfg.norm_eps)
+        return _unembed(params, cfg, x)[:, 0, :], cache
     period, n_groups, n_tail = _hybrid_layout(cfg)
 
     def mamba_step(p_l, c_stack, *idx):
@@ -310,7 +348,7 @@ def forward_decode(
     for gi in range(n_groups):
         for li in range(period):
             mamba_step(_index(params["mamba_main"], gi, li), groups["mamba"], gi, li)
-        x = _attn_block_decode(params["shared_attn"], x, cfg, _index(groups["attn"], gi), pos)
+        x = _attn_block_decode(params["shared_attn"], x, cfg, _index(groups["attn"], gi), pos, position)
     for ti in range(n_tail):
         mamba_step(_index(params["mamba_tail"], ti), cache["tail"], ti)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
@@ -332,7 +370,7 @@ def forward_train(
     _require(cfg, TRAINED_FAMILIES, "forward_train")
     if remat not in REMAT_POLICIES:
         raise NotImplementedError(
-            f"remat={remat!r} is not ported yet (ROADMAP.md queue A item 7); ported: {REMAT_POLICIES}"
+            f"remat={remat!r} is not ported yet (ROADMAP.md queue A item 3); ported: {REMAT_POLICIES}"
         )
     x = embed(params["embed"], batch["tokens"]).to(torch_dtype(cfg.dtype))
     positions = torch.arange(x.shape[1], device=x.device)

@@ -604,6 +604,7 @@ FWD_TC_GRID = [
     (1, 77, 333, 2, 1, 64, False, 50),         # Sq != Sk, window without causal
     (1, 333, 77, 2, 2, 128, True, None),       # Sq > Sk, causal
     (1, 1100, 1100, 16, 8, 128, True, 300),    # many tiles, heaviest first, window
+    (1, 700, 700, 8, 2, 80, True, 256),        # danube's head dim (padded to 128) under a window
 ]
 
 
@@ -993,6 +994,30 @@ def test_zamba2_smoke_serving_launches_both_kernels_and_matches_the_host(cuda):
     assert params["embed"]["table"].dtype == torch.bfloat16 and params["embed"]["table"].is_cuda
     lb, _ = forward_prefill(params, bf, tokens.to(cuda))
     assert bool(torch.isfinite(lb).all())
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "h2o-danube-1.8b"])
+def test_dense_smoke_serving_launches_the_flash_kernel_and_matches_the_host(cuda, arch):
+    """One flash launch per layer in prefill, none in decode; card logits
+    within 1e-4 of the host's (f32); danube's 200-token prompt runs past its
+    32-token smoke window, so prefill fills the ring buffer and decode
+    overwrites it."""
+    cfg = reduce_for_smoke(ARCHS[arch])
+    host = init_model(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    card = _to(host, cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 200), generator=torch.Generator().manual_seed(1))
+    before = flash_attention_cuda.launches
+    logits, cache = forward_prefill(card, cfg, tokens.to(cuda), max_len=208)
+    assert flash_attention_cuda.launches - before == cfg.n_layers
+    want, want_cache = forward_prefill(host, cfg, tokens, max_len=208)
+    torch.testing.assert_close(logits.cpu(), want, rtol=1e-4, atol=1e-4)
+    for step in range(3):
+        nxt = want.argmax(-1, keepdim=True)
+        mid = flash_attention_cuda.launches
+        logits, cache = forward_decode(card, cfg, nxt.to(cuda), cache, 200 + step)
+        assert flash_attention_cuda.launches == mid
+        want, want_cache = forward_decode(host, cfg, nxt, want_cache, 200 + step)
+        torch.testing.assert_close(logits.cpu(), want, rtol=1e-4, atol=1e-4)
 
 
 def _to(tree, dev):

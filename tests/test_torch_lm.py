@@ -174,14 +174,8 @@ def test_entry_points_need_a_device_without_a_card(monkeypatch):
 def test_other_families_are_not_ported_yet(family):
     cfg = dataclasses.replace(reduce_for_smoke(ARCHS["zamba2-7b"]), family=family)
     if family == "dense":
-        # dense trains (tests/test_torch_train.py) but does not serve yet, and
-        # hybrid serves but does not train yet
-        dense = reduce_for_smoke(ARCHS["qwen3-1.7b"])
-        params = pt.init_model(dense, generator=torch.Generator(), device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pt.forward_prefill(params, dense, torch.zeros((1, 4), dtype=torch.long))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pt.forward_decode(params, dense, torch.zeros((1, 1), dtype=torch.long), {}, 0)
+        # dense serves (tests/test_torch_dense_serving.py) and trains
+        # (tests/test_torch_train.py); hybrid serves but does not train yet
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             pt.forward_train({}, reduce_for_smoke(ARCHS["zamba2-7b"]), {})
         return

@@ -403,18 +403,21 @@ def test_compact_rows_matches_nonzero():
 
 def test_port_imports_no_jax_and_nothing_of_the_reference():
     """Every module of ``repro_torch`` (the serving modules among them),
-    ``chip_smoke.py`` and the example it runs
-    (``examples/train_fpca_cnn_torch.py``), imported in a fresh interpreter,
-    leave neither ``jax`` nor ``repro`` in sys.modules."""
+    ``chip_smoke.py`` and the examples it runs (every
+    ``examples/*_torch.py``), imported in a fresh interpreter, leave
+    neither ``jax`` nor ``repro`` in sys.modules."""
     serving = [f"repro_torch.serving.{m}" for m in
                ("fpca_pipeline", "streaming", "events", "saliency", "fleet", "observe")]
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, pathlib, pkgutil, sys\n"
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
-        "chip_smoke.load_train_example()\n"
+        "twins = sorted(pathlib.Path('examples').glob('*_torch.py'))\n"
+        "assert len(twins) == 8, twins\n"
+        "for path in twins:\n"
+        "    chip_smoke.load_example(path.stem)\n"
         f"missing = sorted(set({serving!r}) - set(sys.modules))\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(missing + bad)\n"
