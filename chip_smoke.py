@@ -163,7 +163,38 @@ then, with the served weights freed, the training path
    forward, dQ and dK/dV launch of a step must take the tensor-core design,
    and ptxas must report no spill for any tensor-core kernel, flash, SSD or
    fpca (printed after the build), and no serialised wgmma in the SSD or
-   fpca one.
+   fpca one;
+
+then the remaining families, each model's weights freed before the next:
+
+15. serves granite-moe-3b-a800m (8 requests of 2048 tokens in waves of 4),
+   qwen2-moe-a2.7b (4 x 2048, shared experts), mamba2-2.7b (4 x 4096, SSD
+   at N = 128), seamless-m4t-medium (4 requests of 1500 source frames and
+   1024-token prompts) and internvl2-76b at full width cut to 12 of its 80
+   layers (2 requests of 256 patch embeddings and 1792 tokens), 16 greedy
+   tokens each, through ``launch.serve`` (``family_serving_phase``): the
+   narrow config's card kernels against the host first; one flash launch
+   per attention call and one SSD launch per Mamba2 layer a prefill, all
+   on the tensor-core designs, none in decode; moe_drop_frac at prefill;
+   decode against a fresh prefill with its control, in f32 on the served
+   weights (moe with a lossless capacity, leaving out what a top-k routing
+   flip between the two paths reached); the flash forward against its plain version at each
+   captured kind (causal D = 64, bidirectional, cross-attention with
+   Sq != Sk and a ragged Sk, and there the dQ and dK/dV kernels too) and
+   the SSD kernel at N = 128, each timed beside its bound and SDPA; a
+   profiled prefill and decode step;
+16. trains granite-moe-3b-a800m and mamba2-2.7b (8 x 2048, 4 microbatches,
+   remat ``dots``) and seamless-m4t-medium (8 x 1024, 2, ``dots``) at full
+   width, and zamba2-7b cut to 27 of its 81 layers (4 x 2048, 2, ``full``),
+   two AdamW steps each (``family_train_phase``): finite loss and grad
+   norm, the first loss within 0.5 of ln(vocab) + sigma^2 / 2, the exact
+   flash forward, dQ, dK/dV and SSD launches of every step (all on the
+   tensor-core designs), no plain version on the path; the backward
+   kernels against their plain version at the captured bidirectional and
+   causal D = 64 shapes, timed; one step profiled;
+17. narrow (f32) internvl2-76b and qwen2-moe-a2.7b training, card kernels
+   against the host's plain path (remat none and dots), and
+   ``SSDIntraChunk``'s gradients on the card against the host's.
 
 It prints one JSON line ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {...}}``; a failed phase exits non-zero before
@@ -173,6 +204,7 @@ that line, as does a host with no CUDA device.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import importlib.util
 import json
@@ -219,7 +251,9 @@ from repro_torch.kernels.ssd import kernel as ssd_kernel  # noqa: E402
 from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_cuda  # noqa: E402
 from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref  # noqa: E402
-from repro_torch.launch.serve import serve  # noqa: E402
+from repro_torch.launch.serve import frontend_inputs, serve  # noqa: E402
+from repro_torch.launch.train import frontend_batch  # noqa: E402
+from repro_torch.models import ssm as ssm_module  # noqa: E402
 from repro_torch.models.attention import attend_blockwise  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.transformer import forward_decode, forward_prefill, forward_train, init_model  # noqa: E402
@@ -310,6 +344,74 @@ DENSE_SERVING = {"qwen3-1.7b": (8, 4, 4096, 32), "h2o-danube-1.8b": (2, 2, 8192,
 # K/V slot of the decode's cache within CACHE_ULPS bf16 ulps of the layer's
 # max|value| in the prefill's
 DECODE_ULPS, CACHE_ULPS = 4, 8
+
+# The remaining families served at full width, arch -> (requests, batch,
+# prompt tokens, greedy tokens, encdec source frames, depth cut): moe
+# granite-moe-3b-a800m (a 8192-token prefill group, capacity 2048 an
+# expert: drops possible; decode groups keep every token) and qwen2-moe-a2.7b
+# (shared experts), the ssm mamba2-2.7b (SSD at N = 128, 32 chunks), the
+# encdec seamless-m4t-medium (1500 frames: no multiple of a key tile) and the
+# vlm internvl2-76b (256 patch embeddings 3200 wide, then 1792 text tokens)
+FAMILY_SERVING = {
+    "granite-moe-3b-a800m": (8, 4, 2048, 16, None, None),
+    "qwen2-moe-a2.7b": (4, 4, 2048, 16, None, None),
+    "mamba2-2.7b": (4, 4, 4096, 16, None, None),
+    "seamless-m4t-medium": (4, 4, 1024, 16, 1500, None),
+    "internvl2-76b": (2, 2, 1792, 16, None, 12),
+}
+# trained at full width, arch -> (global batch, tokens a sequence,
+# microbatches, remat, depth cut), FAMILY_TRAIN_STEPS AdamW steps each;
+# seamless's 2 microbatches keep its f32 logits (256,206 wide) at 4.2 GB
+# a microbatch, granite's and mamba2's 4 keep the train step within the
+# card (66.2 and 70.1 GiB at the peak)
+FAMILY_TRAINING = {
+    "granite-moe-3b-a800m": (8, 2048, 4, "dots", None),
+    "mamba2-2.7b": (8, 2048, 4, "dots", None),
+    "seamless-m4t-medium": (8, 1024, 2, "dots", None),
+    "zamba2-7b": (4, 2048, 2, "full", 27),
+}
+FAMILY_TRAIN_STEPS = 2
+# narrow (reduce_for_smoke, f32) training, card kernels against the host's
+# plain path, for the families too wide to train on one card
+NARROW_TRAINING = ("internvl2-76b", "qwen2-moe-a2.7b")
+DEPTH_CUTS = {
+    "internvl2-76b": "its 80 layers hold 141 GB of bf16 weights, more than the card's 80 GB; 12 layers at "
+                     "full width hold 25 GB (sharding over four cards comes with the launch tooling)",
+    "zamba2-7b": "81 layers need 94.5 GB of train state (bf16 params, f32 gradient accumulators and AdamW "
+                 "moments), more than the card's 80 GB; 39 layers (49 GB) ran out of memory in AdamW's f32 "
+                 "temporaries of the 7 GB stacked in_proj leaf; 27 layers (4 groups of 6, a tail of 3) fit",
+}
+# These families' decode against a fresh prefill runs twice.  In bf16, as
+# served (weights, depth, the first wave's rows and served tokens), within
+# BF16_DECODE's bounds (bf16 ulps of max|logit|, of each cache layer's
+# max|value|; DECODE_ULPS and CACHE_ULPS where none is listed), set at
+# 1.5-2x the card's readings (logits, cache; the control's): granite 7.75,
+# 21 (20, 241); qwen2-moe 2.2, 15 (9.3, 140); mamba2 21, 67 (206, 468): its
+# decode's bf16 roundings feed the f32 state every step, and the gap grows
+# from 5.7 ulps at the first step to 21 at the 15th; internvl2 3, 1.5 (11,
+# 136); seamless 1.75, 2.5.  moe runs it at a lossless capacity on
+# CHECK_BATCH rows and does not compare the served tokens (the served
+# 8192-token prefill groups drop 23-44% of the expert slots), and a bf16
+# rounding of the router's input can flip a top-k choice.  A one-position
+# RoPE shift moves seamless's logits by 2.5 ulps, inside any bound its
+# readings allow, so there only the cache sees the bf16 control
+# (BF16_BLIND_LOGITS).  And in f32 on copies of the served weights (moe with
+# a lossless capacity), where the control leaves both bounds (seamless's
+# logits by 5.6x, the rest by 80x or more); the f32 check's depth where the
+# copy beside the served weights would not fit (qwen2-moe's 24 layers are 57
+# GB in f32: its first 8; internvl2's 12 are 50 GB: 6), CHECK_BATCH rows.
+BF16_DECODE = {"granite-moe-3b-a800m": (12, 32), "qwen2-moe-a2.7b": (4, 24), "mamba2-2.7b": (32, 128),
+               "internvl2-76b": (6, 8)}
+BF16_BLIND_LOGITS = ("seamless-m4t-medium",)
+CHECK_LAYERS, CHECK_BATCH = {"qwen2-moe-a2.7b": 8, "internvl2-76b": 6}, 2
+# f32 decode vs prefill: logits and cache within 1e-3 of max|value|.  The
+# two paths sum in other orders (mamba2: a 4096-step recurrence against
+# 32 chunked scans, through 64 layers; states stored in f32): on the host
+# they differ by 1e-6 (16 layers, 1024 tokens) and by 3e-8 with all but
+# the stored states in f64; at mamba2's full size the card read 4.6e-5
+# (logits) and up to 2.4e-4 (states), and a wrong step moves them by 1 to
+# 3 orders of magnitude more than the bound
+F32_RTOL = 1e-3
 
 # Training path: qwen3-1.7b at full width and depth, 4 AdamW steps of
 # 8 x 4096 tokens in 2 microbatches of 4 sequences, full remat
@@ -438,6 +540,7 @@ def fpca_bound_ms(M: int, N: int, C: int, T: int, NB: int) -> tuple[float, dict,
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     check(torch.cuda.is_available(), "no CUDA device is available")
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
@@ -644,10 +747,64 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     bwd_entries, flash_entry["trained"] = train_phase(dev, smi)
+    t_families = time.perf_counter()
+    families = {}
+    for arch in FAMILY_SERVING:
+        gc.collect()
+        torch.cuda.empty_cache()
+        families[f"{arch} serving"] = family_serving_phase(dev, smi, arch)
+    for arch in FAMILY_TRAINING:
+        gc.collect()
+        torch.cuda.empty_cache()
+        families[f"{arch} training"] = family_train_phase(dev, smi, arch)
+    checks = {f"narrow {arch} training": narrow_train_vs_host(dev, arch) for arch in NARROW_TRAINING}
+    checks["ssd function"] = ssd_function_vs_host(dev)
+    print(f"remaining-families phases: {time.perf_counter() - t_families:.1f} s (target: about 150 s)")
+    fold_families(flash_entry, ssd_entry, bwd_entries, families, checks)
     kernels = [fpca_entry, flash_entry, ssd_entry] + bwd_entries
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
+
+
+def fold_families(flash_entry: dict, ssd_entry: dict, bwd_entries: list, families: dict, checks: dict) -> None:
+    """Add the remaining families' paths to the kernels' entries: each
+    path's launches under ``launches_by_path`` (the sums under
+    ``launches``), the kernels' numbers at each new shape under
+    ``new_shapes``, and the card-vs-host checks under ``checks``."""
+    dq_entry, dkdv_entry = bwd_entries
+    flash_by = flash_entry["launches_by_path"]
+    flash_by["qwen3-1.7b training"] = flash_entry["trained"]["launches"]
+    ssd_by = {f"{LM_ARCH} serving": ssd_entry["launches"]}
+    dq_by, dkdv_by = ({"qwen3-1.7b training": e["launches"]} for e in bwd_entries)
+    for entry in (flash_entry, ssd_entry, dq_entry, dkdv_entry):
+        entry["new_shapes"] = {}
+    for path, r in families.items():
+        if path.endswith("serving"):
+            flash_by[path] = r["launches"]["flash_attention"]
+            ssd_by[path] = r["launches"]["ssd_intra_chunk"]
+        else:
+            flash_by[path], dq_by[path], dkdv_by[path], ssd_by[path] = (
+                r["launches"][k] for k in ("flash_fwd", "dq", "dkdv", "ssd"))
+        for kind, shape in r["shapes"].items():
+            if kind == "ssd":
+                ssd_entry["new_shapes"][path] = shape
+            elif kind.startswith("bwd"):
+                dq_entry["new_shapes"][f"{path} {kind}"] = {**shape["dq"], "shape": shape["shape"],
+                                                            "causal": shape["causal"], "plain_ms": shape["plain_ms"],
+                                                            "library_ms": shape["library_ms"]}
+                dkdv_entry["new_shapes"][f"{path} {kind}"] = {**shape["dkdv"], "shape": shape["shape"],
+                                                              "causal": shape["causal"], "plain_ms": shape["plain_ms"],
+                                                              "library_ms": shape["library_ms"]}
+            else:
+                flash_entry["new_shapes"][f"{path} {kind}"] = shape
+    for entry, by in ((flash_entry, flash_by), (ssd_entry, ssd_by), (dq_entry, dq_by), (dkdv_entry, dkdv_by)):
+        entry["launches_by_path"] = {k: v for k, v in by.items() if v}
+        entry["launches"] = sum(by.values())
+    flash_entry["families"] = {p: {k: v for k, v in r.items() if k not in ("shapes", "launches")}
+                               for p, r in families.items()}
+    flash_entry["checks"] = checks
 
 
 def profile_request(model, x: torch.Tensor) -> tuple[float, list[str]]:
@@ -2147,16 +2304,26 @@ def twins_phase(dev: torch.device, export: dict) -> list[dict]:
 # ---------------------------------------------------------------------------
 
 
+def attention_kind(causal: bool, q: torch.Tensor, k: torch.Tensor) -> str:
+    """``flash`` (causal self-attention), ``flash_bidir`` (non-causal, the
+    encoder's) or ``flash_cross`` (non-causal, Sq != Sk)."""
+    if causal:
+        return "flash"
+    return "flash_cross" if q.shape[1] != k.shape[1] else "flash_bidir"
+
+
 @contextlib.contextmanager
 def capture_first_calls():
-    """Record the inputs of the first flash-attention and first SSD
-    intra-chunk call of a run (through the module attributes the model
-    looks up at call time); yields the dict they land in."""
+    """Record the inputs of the first flash-attention call of each kind
+    (``attention_kind``) and the first SSD intra-chunk call of a run
+    (through the module attributes the model looks up at call time); yields
+    the dict they land in."""
     seen: dict = {}
     chunked, flash = ssd_ops.ssd_chunked, transformer.flash_attention
 
     def flash_hook(q, k, v, **kw):
-        seen.setdefault("flash", (q, k, v, kw))
+        kw = {"causal": kw.get("causal", True), "window": kw.get("window")}
+        seen.setdefault(attention_kind(kw["causal"], q, k), (q, k, v, kw))
         return flash(q, k, v, **kw)
 
     def intra_hook(xbar, Bh, Ch, cum):
@@ -2193,11 +2360,14 @@ def smoke_vs_host(dev: torch.device, arch: str) -> tuple[float, float]:
     host = init_model(small, generator=torch.Generator().manual_seed(SEED), device="cpu")
     card = _to(host, dev)
     toks = torch.as_tensor(np.random.default_rng(SEED).integers(0, small.vocab_size, (2, 200)))
-    l_card, c_card = forward_prefill(card, small, toks.to(dev), max_len=208)
-    l_host, c_host = forward_prefill(host, small, toks, max_len=208)
+    fe = frontend_inputs(small, 2, 150, torch.Generator().manual_seed(SEED), torch.device("cpu"))
+    fe_card = None if fe is None else fe.to(dev)
+    pos = 200 + (small.frontend_tokens if small.family == "vlm" else 0)
+    l_card, c_card = forward_prefill(card, small, toks.to(dev), frontend_embeds=fe_card, max_len=pos + 8)
+    l_host, c_host = forward_prefill(host, small, toks, frontend_embeds=fe, max_len=pos + 8)
     nxt = l_host.argmax(-1, keepdim=True)
-    d_card, _ = forward_decode(card, small, nxt.to(dev), c_card, 200)
-    d_host, _ = forward_decode(host, small, nxt, c_host, 200)
+    d_card, _ = forward_decode(card, small, nxt.to(dev), c_card, pos)
+    d_host, _ = forward_decode(host, small, nxt, c_host, pos)
     err_p = float((l_card.cpu() - l_host).abs().max())
     err_d = float((d_card.cpu() - d_host).abs().max())
     print(f"smoke {arch} (f32, {small.n_layers} layers, window {small.window}) card kernels vs host plain: "
@@ -2206,15 +2376,16 @@ def smoke_vs_host(dev: torch.device, arch: str) -> tuple[float, float]:
     return err_p, err_d
 
 
-def profile_serving(arch: str, params: dict, cfg, prompts: torch.Tensor, res: dict, tokens: int) -> tuple[float, float]:
-    """Device time and busy share of one prefill of ``prompts`` (against
-    the median served prefill of ``res``) and of one decode step (against
-    the mean served step), with their split by kernel; returns both device
-    times in ms."""
-    S = prompts.shape[1]
+def profile_serving(arch: str, params: dict, cfg, prompts: torch.Tensor, res: dict, tokens: int,
+                    frontend: torch.Tensor | None = None) -> tuple[float, float]:
+    """Device time and busy share of one prefill of ``prompts`` (with the
+    ``frontend`` embeddings; against the median served prefill of ``res``)
+    and of one decode step (against the mean served step), with their split
+    by kernel; returns both device times in ms."""
+    S = prompts.shape[1] + (cfg.frontend_tokens if cfg.family == "vlm" else 0)
     out: list = []
-    prefill_dev, rows = profile_device(
-        lambda: out.append(forward_prefill(params, cfg, prompts, max_len=S + tokens + 8)), runs=1)
+    prefill_dev, rows = profile_device(lambda: out.append(
+        forward_prefill(params, cfg, prompts, frontend_embeds=frontend, max_len=S + tokens + 8)), runs=1)
     prefill_ms = statistics.median(res["prefill_ms"])
     print(f"profile one {arch} prefill: device time {prefill_dev:.1f} ms, busy {prefill_dev / prefill_ms:.1%} of the "
           f"median served prefill ({prefill_ms:.1f} ms)")
@@ -2428,69 +2599,114 @@ def library_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window:
 
 
 def cache_ulps(cache: dict, ref: dict) -> float:
-    """The largest K/V difference between a decode's cache and a fresh
-    prefill's of the same tokens and layout, in bf16 ulps of the prefill
-    layer's max|value| (each layer's K and V apart)."""
+    """The largest difference between a decode's cache and a fresh
+    prefill's of the same tokens and layout (every leaf of ``layers``: K/V,
+    or Mamba2's conv and SSM states), in bf16 ulps of the prefill layer's
+    max|value| (each layer and leaf apart)."""
     worst = 0.0
-    for name in ("k", "v"):
-        for a, b in zip(cache["layers"][name], ref["layers"][name]):
-            worst = max(worst, float((a.float() - b.float()).abs().max()) / bf16_ulps(float(b.abs().max()), 1))
+    for name, stack in ref["layers"].items():
+        for a, b in zip(cache["layers"][name], stack):
+            worst = max(worst, float((a.float() - b.float()).abs().max()) / bf16_ulps(float(b.float().abs().max()), 1))
     return worst
 
 
-def decode_vs_prefill(params: dict, cfg, prompts: torch.Tensor, gen: torch.Tensor, steps: tuple) -> dict:
-    """Prefill ``prompts`` (B, S), then decode the served greedy tokens
-    ``gen`` (B, T) teacher-forced; at each step in ``steps`` hold the decode
-    logits against a fresh prefill of the prompt plus ``gen[:, :step + 1]``
-    (within DECODE_ULPS bf16 ulps of its max|logit|; its greedy token
-    wherever the top-2 margin exceeds twice that), and every decode step's
-    greedy token against the served one.  After the last step, every K/V
-    slot the decode wrote (the ring past a window) against the fresh
-    prefill's cache, within CACHE_ULPS; and a control: one decode step at a
-    position off by one (its RoPE and its cache slot) must leave both the
-    cache bound and the logit bound."""
+@contextlib.contextmanager
+def moe_calls():
+    """Record each MoE FFN call of a run (through the module attribute the
+    model looks up at call time): its (batch, tokens) and its drop
+    fraction; yields the list."""
+    calls: list = []
+    real = transformer.moe
+
+    def hook(p, x, cfg, **kw):
+        y, aux = real(p, x, cfg, **kw)
+        calls.append({"shape": tuple(x.shape[:2]), "drop": aux["moe_drop_frac"]})
+        return y, aux
+
+    transformer.moe = hook
+    try:
+        yield calls
+    finally:
+        transformer.moe = real
+
+
+def decode_vs_prefill(params: dict, cfg, prompts: torch.Tensor, gen: torch.Tensor, steps: tuple, *,
+                      frontend: torch.Tensor | None = None, served: bool = True,
+                      ulps: tuple[float, float] = (DECODE_ULPS, CACHE_ULPS), control_logits: bool = True) -> dict:
+    """Prefill ``prompts`` (B, S) (with ``frontend``'s patches or frames),
+    then decode the served greedy tokens ``gen`` (B, T) teacher-forced; at
+    each step in ``steps`` hold the decode logits against a fresh prefill of
+    the prompt plus ``gen[:, :step + 1]`` (within ``ulps[0]`` bf16 ulps of
+    its max|logit| in bf16, F32_RTOL of it in f32; its greedy token wherever
+    the top-2 margin exceeds twice that).  With ``served`` (the params,
+    config and rows the tokens were served with) every greedy token of the
+    prefill and of each decode step must equal the served one.  After the
+    last step, the decode's cache (every K/V slot it wrote, the ring past a
+    window; Mamba2's states) against the fresh prefill's, within ``ulps[1]``
+    bf16 ulps (F32_RTOL in f32); and a control that must leave the cache
+    bound and, with ``control_logits``, the logit bound: a decode step at a
+    position off by one (its RoPE and its cache slot), or for an ssm, which
+    has no position, a step fed the next token."""
     S, T = prompts.shape[1], gen.shape[1]
-    max_len = S + T + 8
-    logits, cache = forward_prefill(params, cfg, prompts, max_len=max_len)
-    check(torch.equal(logits.argmax(-1), gen[:, 0].long()), "the prefill's greedy tokens differ from the served ones")
+    off = cfg.frontend_tokens if cfg.family == "vlm" else 0
+    max_len = off + S + T + 8
+    f32 = cfg.dtype == "float32"
+
+    def prefill(toks):
+        return forward_prefill(params, cfg, toks, frontend_embeds=frontend, max_len=max_len)
+
+    def bound(top: float) -> float:
+        return F32_RTOL * top if f32 else bf16_ulps(top, ulps[0])
+
+    logits, cache = prefill(prompts)
+    check(not served or torch.equal(logits.argmax(-1), gen[:, 0].long()),
+          "the prefill's greedy tokens differ from the served ones")
     kept, out = {}, {}
     for i in range(T - 1):
-        logits, cache = forward_decode(params, cfg, gen[:, i : i + 1].long(), cache, S + i)
-        check(torch.equal(logits.argmax(-1), gen[:, i + 1].long()),
+        logits, cache = forward_decode(params, cfg, gen[:, i : i + 1].long(), cache, off + S + i)
+        check(not served or torch.equal(logits.argmax(-1), gen[:, i + 1].long()),
               f"decode step {i}: greedy tokens differ from the served ones")
         if i in steps:
             kept[i] = logits.clone()
     for i in steps:
-        ref, ref_cache = forward_prefill(params, cfg, torch.cat([prompts, gen[:, : i + 1].long()], 1), max_len=max_len)
+        ref, ref_cache = prefill(torch.cat([prompts, gen[:, : i + 1].long()], 1))
         top = float(ref.abs().max())
-        tol = bf16_ulps(top, DECODE_ULPS)
+        tol = bound(top)
         err = float((kept[i] - ref).abs().max())
         top2 = ref.topk(2, dim=-1).values
         clear = (top2[:, 0] - top2[:, 1]) > 2 * tol
         same = kept[i].argmax(-1) == ref.argmax(-1)
-        print(f"decode step {i} (position {S + i + 1}) vs a fresh prefill of {S + i + 1} tokens: max|Δlogit| "
-              f"{err:.4f} (limit {DECODE_ULPS} bf16 ulps of max|logit| {top:.3f}: {tol:.4f}); greedy tokens equal in "
-              f"{int(same.sum())}/{same.numel()}, margin > {2 * tol:.4f} in {int(clear.sum())}")
-        check(err <= tol, f"decode step {i} leaves the bf16 bound against a fresh prefill")
+        print(f"decode step {i} (position {off + S + i + 1}) vs a fresh prefill of {off + S + i + 1} positions "
+              f"({'f32' if f32 else 'bf16'}): max|Δlogit| {err:.4g} (limit {tol:.4g}: "
+              f"{'F32_RTOL' if f32 else f'{ulps[0]:g} bf16 ulps'} of max|logit| {top:.3f}); "
+              f"greedy tokens equal in {int(same.sum())}/{same.numel()}, margin > {2 * tol:.4g} in {int(clear.sum())}")
+        check(err <= tol, f"decode step {i} leaves the bound against a fresh prefill")
         check(bool(same[clear].all()), f"decode step {i}: a greedy token with a clear margin differs from the prefill's")
         out[i] = {"max_abs_err": err, "tol": tol, "greedy_equal": int(same.sum()), "clear_margin": int(clear.sum())}
         if i == T - 2:
-            out["cache_ulps"] = cache_ulps(cache, ref_cache)
+            out["cache_err"] = cache_ulps(cache, ref_cache)
             del cache
         if i == 0:
-            _, ctl = forward_prefill(params, cfg, prompts, max_len=max_len)
-            ctl_logits, ctl = forward_decode(params, cfg, gen[:, :1].long(), ctl, S + 1)
-            out["control"] = {"cache_ulps": cache_ulps(ctl, ref_cache),
+            _, ctl = prefill(prompts)
+            if cfg.family == "ssm":
+                ctl_logits, ctl = forward_decode(params, cfg, gen[:, 1:2].long(), ctl, off + S)
+            else:
+                ctl_logits, ctl = forward_decode(params, cfg, gen[:, :1].long(), ctl, off + S + 1)
+            out["control"] = {"cache_err": cache_ulps(ctl, ref_cache),
                               "max_abs_err": float((ctl_logits - ref).abs().max())}
             del ctl, ctl_logits
         del ref_cache
     ctl = out["control"]
-    print(f"decode's K/V cache after {T - 1} steps vs a fresh prefill's: {out['cache_ulps']:.2f} bf16 ulps of each "
-          f"layer's max|value| (limit {CACHE_ULPS}); control, one decode step at position {S + 1} in place of {S}: "
-          f"cache {ctl['cache_ulps']:.1f} ulps, max|Δlogit| {ctl['max_abs_err']:.4f} (logit limit {out[0]['tol']:.4f})")
-    check(out["cache_ulps"] <= CACHE_ULPS, "the decode's K/V cache leaves the bound against a fresh prefill's")
-    check(ctl["cache_ulps"] > CACHE_ULPS and ctl["max_abs_err"] > out[0]["tol"],
-          "the cache or the logit check cannot see a decode step at the wrong position")
+    cache_tol = F32_RTOL / 2.0**-7 if f32 else ulps[1]
+    what = "a step fed the next token" if cfg.family == "ssm" else f"one decode step at position {off + S + 1}"
+    print(f"decode's cache after {T - 1} steps vs a fresh prefill's: {out['cache_err']:.3g} bf16 ulps of each layer's "
+          f"max|value| (limit {cache_tol:.3g}); control, {what}: cache {ctl['cache_err']:.1f} ulps, max|Δlogit| "
+          f"{ctl['max_abs_err']:.4g} (logit limit {out[steps[0]]['tol']:.4g}"
+          f"{'' if control_logits else ', which this check cannot hold the control to'})")
+    check(out["cache_err"] <= cache_tol, "the decode's cache leaves the bound against a fresh prefill's")
+    check(ctl["cache_err"] > cache_tol and (ctl["max_abs_err"] > out[steps[0]]["tol"] or not control_logits),
+          "the cache or the logit check cannot see a wrong decode step")
+    out["cache_ulps"] = out["cache_err"]
     return out
 
 
@@ -2625,14 +2841,17 @@ def dense_phase(dev: torch.device, smi: str, arch: str, n_requests: int, batch: 
 
 @contextlib.contextmanager
 def capture_first_backward():
-    """Record the inputs ``(q, k, v, out, lse, dO)`` of the first flash
-    backward of a run (through the module attribute ``FlashAttention``
-    looks up at call time); yields the dict they land in."""
+    """Record the inputs ``(q, k, v, out, lse, dO)`` of the first causal
+    flash backward of a run (``bwd``) and of the first of each non-causal
+    kind (``bwd_flash_bidir``, ``bwd_flash_cross``: ``attention_kind``),
+    through the module attribute ``FlashAttention`` looks up at call time;
+    yields the dict they land in."""
     seen: dict = {}
     real = flash_bwd.flash_attention_bwd_cuda
 
     def hook(q, k, v, out, lse, do, **kw):
-        seen.setdefault("bwd", (q, k, v, out, lse, do, kw))
+        key = "bwd" if kw["causal"] else f"bwd_{attention_kind(False, q, k)}"
+        seen.setdefault(key, (q, k, v, out, lse, do, kw))
         return real(q, k, v, out, lse, do, **kw)
 
     flash_bwd.flash_attention_bwd_cuda = hook
@@ -2876,6 +3095,465 @@ def train_phase(dev: torch.device, smi: str) -> tuple[list[dict], dict]:
         }
 
     return [entry("dq", dq_ms, errs["dq"], 46), entry("dkdv", dkdv_ms, max(errs["dk"], errs["dv"]), 87)], trained_fwd
+
+
+# ---------------------------------------------------------------------------
+# the remaining families: moe, ssm, encdec and vlm served; moe, ssm, encdec
+# and hybrid trained (narrow vlm and qwen2-moe training card vs host)
+# ---------------------------------------------------------------------------
+
+
+def attention_calls(cfg) -> int:
+    """Flash-attention calls of one forward pass over a sequence."""
+    if cfg.family == "encdec":
+        return cfg.n_enc_layers + 2 * cfg.n_layers    # encoder self, decoder self and cross
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.hybrid_attn_period
+    return 0 if cfg.family == "ssm" else cfg.n_layers
+
+
+def ssd_calls(cfg, remat: str | None = None) -> int:
+    """SSD intra-chunk calls of one forward pass, and with ``remat`` of one
+    training step's microbatch (the remat units recompute theirs: an ssm's
+    every layer, a hybrid's groups but not its tail)."""
+    if cfg.family not in ("ssm", "hybrid"):
+        return 0
+    if remat is None or remat == "none":
+        return cfg.n_layers
+    period = cfg.hybrid_attn_period
+    return cfg.n_layers + (cfg.n_layers // period * period if cfg.family == "hybrid" else cfg.n_layers)
+
+
+def _reset_lm_counts() -> None:
+    _zero_launch_counts()
+    ssd_intra_chunk_cuda.launches = 0
+    ssd_intra_chunk_cuda.designs = dict.fromkeys(ssd_intra_chunk_cuda.designs, 0)
+
+
+@contextlib.contextmanager
+def forbid_plain_versions():
+    """Make every plain version the card's path could fall back to raise:
+    the flash forward's and backward's, the SSD intra-chunk's (the kernel
+    wrapper's and ``models/ssm.py``'s).  A wrapper takes its plain version
+    only on CPU tensors, so inside this block nothing may run on the host."""
+    targets = [(flash_fwd, "flash_attention_ref"), (flash_bwd, "flash_attention_bwd_ref"),
+               (ssd_kernel, "ssd_intra_chunk_ref"), (ssm_module, "ssd_intra_chunk")]
+    saved = [getattr(m, n) for m, n in targets]
+
+    def refuse(name):
+        def call(*a, **kw):
+            raise RuntimeError(f"chip_smoke: the plain version {name} ran on the card's path")
+        return call
+
+    for m, n in targets:
+        setattr(m, n, refuse(n))
+    try:
+        yield
+    finally:
+        for (m, n), fn in zip(targets, saved):
+            setattr(m, n, fn)
+
+
+def flash_at(label: str, q, k, v, kw: dict, smi: str) -> dict:
+    """The forward kernel against its plain version on captured inputs
+    (within one bf16 ulp), timed behind an L2 flush beside the plain
+    version, SDPA on the same work and the bound (4 D FLOP a live pair)."""
+    causal, window = kw["causal"], kw["window"]
+    check(flash_fwd.design(q, k, v) == "wgmma", f"{label}: the q/k/v must take the tensor-core design")
+    got = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    want = attend_blockwise(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    check(bool((diff <= FLASH_ATOL + FLASH_RTOL * want.float().abs()).all()),
+          f"{label}: flash kernel disagrees with its plain version beyond one bf16 ulp")
+    del got, want, diff
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    ms = time_cuda(lambda: flash_attention_cuda(q, k, v, causal=causal, window=window))
+    plain_ms = time_cuda(lambda: attend_blockwise(q, k, v, causal=causal, window=window), iters=5)
+    lib_ms = time_cuda(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=H != KV))
+    ms2 = time_cuda(lambda: flash_attention_cuda(q, k, v, causal=causal, window=window))
+    pairs = B * H * live_pairs(Sq, Sk, causal, window)
+    tb = q.element_size() * (2 * B * Sq * H * D + 2 * B * Sk * KV * D) / PEAK_BYTES_PER_S * 1e3
+    to = 4 * D * pairs / PEAK_BF16_FLOP_PER_S * 1e3
+    rate = flash_rates(statistics.median([ms, ms2]), 4 * D * pairs, pairs, D)
+    print(f"flash {label} at B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} D={D} causal={causal} on {smi}: kernel vs plain "
+          f"max|Δ| {err:.3e}; kernel {ms:.4f} / {ms2:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+          f"{max(tb, to):.4f} ms (bytes {tb:.4f}, bf16 ops {to:.4f}); achieved {rate[0]:.1f} TFLOP/s required, "
+          f"{rate[1]:.1f} executed")
+    return {"shape": [B, Sq, Sk, H, KV, D], "causal": causal, "max_abs_err": err, "ms": statistics.median([ms, ms2]),
+            "plain_ms": plain_ms, "bound_ms": max(tb, to), "bound_by": "bytes" if tb >= to else "operations",
+            "library_ms": lib_ms, "tflops_required": rate[0]}
+
+
+def ssd_at(label: str, xbar, Bh, Ch, cum, groups: int, smi: str) -> dict:
+    """The SSD kernel against its plain version on captured inputs (within
+    SSD_NORMWISE; chunk_decay bit-equal; the SIMT design too), timed beside
+    its SIMT design, the plain version and the bound."""
+    check(ssd_kernel.design(xbar, Bh, Ch) == "wgmma", f"{label}: the SSD inputs must take the tensor-core design")
+    y, st, dec = ssd_intra_chunk_cuda(xbar, Bh, Ch, cum)
+    y_r, st_r, dec_r = ssd_intra_chunk_ref(xbar, Bh, Ch, cum)
+    y_s, st_s = simt_ssd(xbar, Bh, Ch, cum)
+    torch.cuda.synchronize()
+    err = max(float((y - y_r).abs().max()), float((st - st_r).abs().max()))
+
+    def normwise(a, b):
+        return float((a - b).abs().max()) / float(b.abs().max())
+
+    rel, rel_s = max(normwise(y, y_r), normwise(st, st_r)), max(normwise(y_s, y_r), normwise(st_s, st_r))
+    check(rel <= SSD_NORMWISE and torch.equal(dec, dec_r), f"{label}: ssd kernel disagrees with its plain version")
+    check(rel_s <= SSD_NORMWISE, f"{label}: the SSD kernel's SIMT design disagrees with its plain version")
+    del y, st, dec, y_r, st_r, dec_r, y_s, st_s
+    b, nc, Q, Hs, P = xbar.shape
+    N = Bh.shape[-1]
+    ms = time_cuda(lambda: ssd_intra_chunk_cuda(xbar, Bh, Ch, cum))
+    simt_ms = time_cuda(lambda: simt_ssd(xbar, Bh, Ch, cum))
+    plain_ms = time_cuda(lambda: ssd_intra_chunk_ref(xbar, Bh, Ch, cum), iters=5)
+    s_bytes = 4 * (2 * b * nc * Q * Hs * P + b * nc * Q * Hs + 2 * b * nc * Q * groups * N + b * nc * Hs * P * N)
+    s_ops = b * nc * Hs * (Q * (Q + 1) * N + Q * (Q + 1) * P + 2 * Q * N * P)
+    tb, tt = s_bytes / PEAK_BYTES_PER_S * 1e3, SSD_PASSES * s_ops / PEAK_BF16_FLOP_PER_S * 1e3
+    print(f"ssd {label} at b={b} nc={nc} Q={Q} H={Hs} P={P} N={N} G={groups} on {smi}: kernel vs plain max|Δ| "
+          f"{err:.3e}, normwise {rel:.2e} (SIMT design {rel_s:.2e}, limit {SSD_NORMWISE}); kernel {ms:.4f} ms, SIMT "
+          f"design {simt_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {max(tb, tt):.4f} ms (bytes {s_bytes / 1e9:.3f} GB: "
+          f"{tb:.4f}; {SSD_PASSES} bf16 passes: {tt:.4f}); {100 * max(tb, tt) / ms:.1f}% of the bound")
+    return {"shape": [b, nc, Q, Hs, P, N, groups], "max_abs_err": err, "ms": ms, "simt_ms": simt_ms,
+            "plain_ms": plain_ms, "bound_ms": max(tb, tt), "bound_by": "bytes" if tb >= tt else "operations",
+            "library_ms": None}
+
+
+def flash_bwd_at(label: str, captured: tuple, smi: str) -> dict:
+    """The dQ and dK/dV kernels against their plain version on captured
+    backward inputs (within two bf16 ulps of max|value|), timed beside their
+    bounds (6 D and 8 D FLOP a live pair), the plain backward and SDPA's."""
+    *tensors, kw = captured
+    q, k, v, out, lse, do = (t.detach() for t in tensors)
+    causal, window = kw["causal"], kw["window"]
+    delta = attention_delta(out, do)
+    dq = flash_attention_dq_cuda(q, k, v, do, lse, delta, causal=causal, window=window)
+    dk, dv = flash_attention_dkdv_cuda(q, k, v, do, lse, delta, causal=causal, window=window)
+    want = flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal, window=window)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, x, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        top = float(w.float().abs().max())
+        errs[name] = float((x.float() - w.float()).abs().max())
+        check(errs[name] <= bf16_ulps(top), f"{label}: {name} kernel disagrees with its plain version beyond two "
+              f"bf16 ulps of max|value| ({errs[name]:.3e} against {bf16_ulps(top):.3e})")
+    del dq, dk, dv, want
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    dq_ms = time_cuda(lambda: flash_attention_dq_cuda(q, k, v, do, lse, delta, causal=causal, window=window))
+    dkdv_ms = time_cuda(lambda: flash_attention_dkdv_cuda(q, k, v, do, lse, delta, causal=causal, window=window))
+    plain_ms = time_cuda(lambda: flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal, window=window), iters=5)
+    qt, kt, vt = (t.transpose(1, 2).requires_grad_() for t in (q, k, v))
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=H != KV)
+    dot = do.transpose(1, 2)
+    sdpa_ms = time_cuda(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot, retain_graph=True))
+    pairs = B * H * live_pairs(Sq, Sk, causal, window)
+    el = q.element_size()
+    in_bytes = el * (2 * B * Sq * H * D + 2 * B * Sk * KV * D) + 4 * 2 * B * H * Sq
+    res = {"shape": [B, Sq, Sk, H, KV, D], "causal": causal, "plain_ms": plain_ms, "library_ms": sdpa_ms}
+    for name, kernel_ms, ops, out_bytes, err in (
+            ("dq", dq_ms, 6 * D * pairs, el * B * Sq * H * D, errs["dq"]),
+            ("dkdv", dkdv_ms, 8 * D * pairs, el * 2 * B * Sk * KV * D, max(errs["dk"], errs["dv"]))):
+        tb, to = (in_bytes + out_bytes) / PEAK_BYTES_PER_S * 1e3, ops / PEAK_BF16_FLOP_PER_S * 1e3
+        res[name] = {"ms": kernel_ms, "max_abs_err": err, "bound_ms": max(tb, to),
+                     "bound_by": "bytes" if tb >= to else "operations"}
+    print(f"flash backward {label} at B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} D={D} causal={causal} on {smi}: dq max|Δ| "
+          f"{errs['dq']:.3e}, dk {errs['dk']:.3e}, dv {errs['dv']:.3e}; dq kernel {dq_ms:.4f} ms (bound "
+          f"{res['dq']['bound_ms']:.4f}), dkdv kernel {dkdv_ms:.4f} ms (bound {res['dkdv']['bound_ms']:.4f}), plain "
+          f"backward {plain_ms:.4f} ms, sdpa backward {sdpa_ms:.4f} ms")
+    return res
+
+
+def _check_params(params: dict, cfg) -> tuple[dict, object]:
+    """f32 copies of the first CHECK_LAYERS layers of a model (its
+    ``blocks``), and its config in f32; a moe config with a capacity factor
+    of E / k (capacity = group: nothing dropped)."""
+    n = min(CHECK_LAYERS.get(cfg.name, cfg.n_layers), cfg.n_layers)
+    small = dataclasses.replace(cfg, dtype="float32", n_layers=n)
+    if cfg.family == "moe":
+        small = dataclasses.replace(small, moe_capacity_factor=cfg.n_experts / cfg.top_k)
+
+    def cast(tree: dict, stacked: bool) -> dict:
+        return {k: cast(v, stacked) if isinstance(v, dict) else (v[:n] if stacked else v).float()
+                for k, v in tree.items()}
+
+    return {k: cast(v, k == "blocks") if isinstance(v, dict) else v.float() for k, v in params.items()}, small
+
+
+def family_serving_phase(dev: torch.device, smi: str, arch: str) -> dict:
+    """Serve one of the remaining families at full width through
+    ``launch.serve`` (a depth cut where one card cannot hold it); check its
+    launches per prefill (every flash and SSD launch on the tensor-core
+    design, none in decode), decode against a fresh prefill, each kernel
+    against its plain version on inputs captured from a served prefill,
+    timed beside its bound and SDPA; profile a prefill and a decode step."""
+    requests, batch, prompt, tokens, src_len, cut = FAMILY_SERVING[arch]
+    t_phase = time.perf_counter()
+    step = Laps()
+    smoke_err = smoke_vs_host(dev, arch)
+    step("smoke")
+    cfg = ARCHS[arch]
+    if cut:
+        print(f"{arch}: depth cut {cfg.n_layers} -> {cut} layers at full width: {DEPTH_CUTS[arch]}")
+        cfg = dataclasses.replace(cfg, n_layers=cut)
+    params = init_model(cfg, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"{arch} on the card: {n_params:,} parameters ({cfg.dtype}), {cfg.family}, {cfg.n_layers} layers"
+          f"{f' + {cfg.n_enc_layers} encoder layers' if cfg.n_enc_layers else ''}, d_model {cfg.d_model}")
+    prompts = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (requests, prompt))
+    frontend = frontend_inputs(cfg, requests, src_len or prompt, torch.Generator(device=dev).manual_seed(SEED + 1), dev)
+    fe_wave = None if frontend is None else frontend[:batch]
+    toks = torch.as_tensor(prompts[:batch], device=dev)
+    with capture_first_calls() as seen:
+        logits, _cache = forward_prefill(params, cfg, toks, frontend_embeds=fe_wave)
+        torch.cuda.synchronize()
+    del logits, _cache
+    step("init")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_lm_counts()
+    with moe_calls() as calls:
+        res = serve(params, cfg, prompts, batch=batch, tokens=tokens, device=dev, frontend=frontend)
+    launches = {"flash_attention": flash_attention_cuda.launches, "ssd_intra_chunk": ssd_intra_chunk_cuda.launches}
+    designs = {"flash_attention": dict(flash_attention_cuda.designs),
+               "ssd_intra_chunk": dict(ssd_intra_chunk_cuda.designs)}
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = (attention_calls(cfg), ssd_calls(cfg))
+    for i, p_ms in enumerate(res["prefill_ms"]):
+        print(f"{arch} wave {i}: prefill {p_ms:.1f} ms, {tokens - 1} decode steps {res['decode_ms'][i]:.1f} ms, "
+              f"launches (flash, ssd) per prefill {res['prefill_launches'][i]}, in decode {res['decode_launches'][i]}")
+        check(res["prefill_launches"][i] == want,
+              f"{arch} wave {i}: (flash, ssd) launches per prefill {res['prefill_launches'][i]}, expected {want}")
+        check(res["decode_launches"][i] == (0, 0), f"{arch} wave {i}: kernel launches in decode")
+    for name, d in designs.items():
+        check(d["wgmma"] == launches[name], f"{arch}: {name} launches by design {d}: every served launch must take "
+              "the tensor-core design")
+    drops = None
+    if cfg.family == "moe":
+        prefill_calls = [c for c in calls if c["shape"][1] > 1]
+        drops = [float(c["drop"]) for c in prefill_calls]
+        print(f"{arch} moe_drop_frac at prefill ({len(drops)} layer calls, groups of {batch * prompt} tokens, "
+              f"capacity factor {cfg.moe_capacity_factor}): mean {statistics.mean(drops):.4g}, max {max(drops):.4g}; "
+              f"decode groups of {batch} keep every token: max {max(float(c['drop']) for c in calls if c['shape'][1] == 1)}")
+    seqs = res["sequences"]
+    check(seqs.shape == (requests, tokens), f"{arch}: sequences {seqs.shape}")
+    check(int(seqs.min()) >= 0 and int(seqs.max()) < cfg.vocab_size, f"{arch}: generated tokens out of range")
+    check(res["finite"], f"{arch}: non-finite logits")
+    print(f"served {arch}: {requests} requests x {tokens} tokens on {smi}: decode {res['decode_tok_s']:.1f} tok/s, end "
+          f"to end {res['e2e_tok_s']:.1f} tok/s, max_memory_allocated {peak / 2**30:.2f} GiB; launches {launches}")
+    step("serve")
+
+    # in bf16 as served (moe: lossless, CHECK_BATCH rows), then in f32 on the
+    # served weights (CHECK_LAYERS, moe lossless); the served tokens teacher-forced
+    is_moe = cfg.family == "moe"
+    rows = CHECK_BATCH if is_moe else batch
+    lossless = dataclasses.replace(cfg, moe_capacity_factor=cfg.n_experts / cfg.top_k) if is_moe else cfg
+    print(f"{arch} decode check in bf16 on the served weights, {cfg.n_layers} layers, {rows} rows"
+          + (f", capacity factor {lossless.moe_capacity_factor:g} (lossless), served tokens not compared" if is_moe
+             else ", the served tokens compared"))
+    dvp_bf16 = decode_vs_prefill(params, lossless, toks[:rows], torch.as_tensor(seqs[:rows], device=dev),
+                                 steps=(0, tokens - 2), frontend=None if fe_wave is None else fe_wave[:rows],
+                                 served=not is_moe, ulps=BF16_DECODE.get(arch, (DECODE_ULPS, CACHE_ULPS)),
+                                 control_logits=arch not in BF16_BLIND_LOGITS)
+    step("decode vs prefill, bf16")
+    check_params, check_cfg = _check_params(params, cfg)
+    print(f"{arch} decode check in f32 on the served weights, {check_cfg.n_layers} of {cfg.n_layers} layers, "
+          f"{CHECK_BATCH} rows" + (f", capacity factor {check_cfg.moe_capacity_factor:g} (lossless)"
+                                   if cfg.family == "moe" else ""))
+    dvp = decode_vs_prefill(check_params, check_cfg, toks[:CHECK_BATCH],
+                            torch.as_tensor(seqs[:CHECK_BATCH], device=dev), steps=(0, tokens - 2),
+                            frontend=None if fe_wave is None else fe_wave[:CHECK_BATCH], served=False)
+    del check_params
+    step("decode vs prefill, f32")
+
+    shapes = {}
+    for kind in ("flash", "flash_bidir", "flash_cross"):
+        if kind in seen:
+            q, k, v, kw = seen.pop(kind)
+            shapes[kind] = flash_at(f"{arch} {kind}", q, k, v, kw, smi)
+            if kind == "flash_cross":   # the backward kernels at Sq != Sk, a ragged Sk: dO drawn from the seed
+                out, lse = flash_attention_cuda(q, k, v, causal=False, return_lse=True)
+                do = torch.randn(out.shape, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev,
+                                 dtype=out.dtype)
+                shapes["bwd_flash_cross"] = flash_bwd_at(f"{arch} cross", (q, k, v, out, lse, do, kw), smi)
+                del out, lse, do
+            del q, k, v
+    if "ssd" in seen:
+        shapes["ssd"] = ssd_at(arch, *seen.pop("ssd"), cfg.ssm_groups, smi)
+    del seen
+    step("kernels")
+    device_ms, dec_ms = profile_serving(arch, params, cfg, toks, res, tokens, fe_wave)
+    del params
+    step("profile")
+    seconds = step.report(f"{arch} serving phase")
+    wall = time.perf_counter() - t_phase
+    print(f"{arch} serving phase: {wall:.1f} s")
+    return {"launches": launches, "designs": designs, "shapes": shapes, "prefill_ms": res["prefill_ms"],
+            "decode_tok_s": res["decode_tok_s"], "e2e_tok_s": res["e2e_tok_s"], "peak_bytes": peak,
+            "prefill_device_ms": device_ms, "decode_step_device_ms": dec_ms,
+            "decode_vs_prefill": {"bf16": dvp_bf16, "f32": dvp},
+            "moe_drop_frac": drops, "smoke_err": smoke_err, "seconds_by_step": seconds, "seconds": wall}
+
+
+def narrow_train_vs_host(dev: torch.device, arch: str) -> dict:
+    """Training through the kernels on the card against the plain path on
+    the host on the narrow config of ``arch`` (f32, its frontend): loss and
+    every gradient under remat none and dots, and the launches it made."""
+    small = reduce_for_smoke(ARCHS[arch])
+    host = init_model(small, generator=torch.Generator().manual_seed(SEED), device="cpu")
+    card = _to(host, dev)
+    rng = np.random.default_rng(SEED)
+    text = 200 - (small.frontend_tokens if small.family == "vlm" else 0)
+    batch = {k: torch.as_tensor(rng.integers(0, small.vocab_size, (2, text))) for k in ("tokens", "labels")}
+    fe = frontend_batch(small, 2, 200, SEED, 0)
+    if fe is not None:
+        batch["frontend"] = fe
+    host_leaves = [p.requires_grad_() for p in tree_leaves(host)]
+    card_leaves = [p.requires_grad_() for p in tree_leaves(card)]
+    out = {}
+    for remat in ("none", "dots"):
+        want_loss, _ = forward_train(host, small, batch, remat=remat)
+        want = torch.autograd.grad(want_loss, host_leaves)
+        before = _launch_counts()
+        with forbid_plain_versions():
+            loss, _ = forward_train(card, small, {k: v.to(dev) for k, v in batch.items()}, remat=remat)
+            got = torch.autograd.grad(loss, card_leaves)
+        launched = tuple(a - b for a, b in zip(_launch_counts(), before))
+        loss_err = abs(float(loss.detach()) - float(want_loss.detach()))
+        grad_err = max(float((x.cpu() - w).abs().max()) / max(float(w.abs().max()), 1e-30) for x, w in zip(got, want))
+        per = attention_calls(small)
+        print(f"narrow {arch} (f32, {small.n_layers} layers) training, remat {remat}, card kernels vs host plain: "
+              f"|Δloss| {loss_err:.2e}, gradients max|Δ|/max|value| {grad_err:.2e}; launches (flash fwd, dq, dkdv) "
+              f"{launched}")
+        check(loss_err <= TRAIN_LOSS_TOL and grad_err <= TRAIN_GRAD_TOL,
+              f"narrow {arch} training (remat {remat}) on the card disagrees with the host")
+        check(launched == ((2 if remat != "none" else 1) * per, per, per),
+              f"narrow {arch} training (remat {remat}): launches {launched}")
+        out[remat] = {"loss_err": loss_err, "grad_err": grad_err, "launches": launched}
+    return out
+
+
+def ssd_function_vs_host(dev: torch.device) -> dict:
+    """``SSDIntraChunk`` (the kernel forward, the closed-form backward) on
+    the card against the host, through ``ssd_chunked`` at a narrow size
+    whose chunks take the tensor-core design (q = 128, p = 64, n = 128, one
+    group): outputs and the gradients of x, dt, A, B and C within 1e-4 of
+    their max|value| (the tensor-core forward's split products, f32 sums in
+    another order)."""
+    g = torch.Generator().manual_seed(SEED)
+    b, l, h, p, n = 1, 300, 4, 64, 128
+    host = [torch.randn((b, l, h, p), generator=g), 0.3 * torch.rand((b, l, h), generator=g),
+            -torch.rand(h, generator=g) - 0.5, torch.randn((b, l, 1, n), generator=g),
+            torch.randn((b, l, 1, n), generator=g)]
+    wy, ws = torch.randn((b, l, h, p), generator=g), torch.randn((b, h, p, n), generator=g)
+    grads, outs = [], []
+    before = ssd_intra_chunk_cuda.launches
+    for where in ("cpu", dev):
+        ts = [t.to(where).requires_grad_() for t in host]
+        with contextlib.nullcontext() if where == "cpu" else forbid_plain_versions():
+            y, s = ssd_ops.ssd_chunked(*ts, chunk=128)
+            grads.append([x.cpu() for x in torch.autograd.grad((y * wy.to(where)).sum() + (s * ws.to(where)).sum(), ts)])
+        outs.append((y.detach().cpu(), s.detach().cpu()))
+    errs = [float((a - w).abs().max()) / float(w.abs().max()) for a, w in zip(outs[1] + tuple(grads[1]),
+                                                                              outs[0] + tuple(grads[0]))]
+    print(f"SSDIntraChunk through ssd_chunked (b={b}, l={l}, h={h}, p={p}, n={n}), card vs host: y, state, dx, ddt, "
+          f"dA, dB, dC max|Δ|/max|value| {', '.join(f'{e:.2e}' for e in errs)} (limit 1e-4); "
+          f"{ssd_intra_chunk_cuda.launches - before} kernel launch")
+    check(max(errs) <= 1e-4, "SSDIntraChunk's gradients on the card disagree with the host's")
+    check(ssd_intra_chunk_cuda.launches == before + 1, "the SSD Function did not launch the kernel once")
+    return {"max_rel_err": max(errs)}
+
+
+def family_train_phase(dev: torch.device, smi: str, arch: str) -> dict:
+    """Train one family at full width (a depth cut where one card cannot
+    hold its train state) for FAMILY_TRAIN_STEPS AdamW steps: finite loss
+    and grad norm, the first loss near ln(vocab), the exact launches of the
+    flash and SSD kernels on every step (all tensor-core), no plain version
+    on the path; the non-causal backward kernels against their plain
+    version on captured inputs, timed; one step profiled."""
+    batch, seq, n_micro, remat, cut = FAMILY_TRAINING[arch]
+    t_phase = time.perf_counter()
+    cfg = ARCHS[arch]
+    if cut:
+        print(f"{arch} training: depth cut {cfg.n_layers} -> {cut} layers at full width: {DEPTH_CUTS[arch]}")
+        cfg = dataclasses.replace(cfg, n_layers=cut)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = init_model(cfg, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    opt_state = init_adamw(params)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    step_fn = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=20, total_steps=FAMILY_TRAIN_STEPS),
+                              n_micro=n_micro, remat=remat)
+    text = seq - (cfg.frontend_tokens if cfg.family == "vlm" else 0)
+    stream = SyntheticLM(LMStreamConfig(vocab_size=cfg.vocab_size, seq_len=text, global_batch=batch, seed=SEED))
+    batches = []
+    for i in range(FAMILY_TRAIN_STEPS + 1):
+        bt = {k: torch.as_tensor(v, dtype=torch.long, device=dev) for k, v in stream.batch_at(i).items()}
+        fe = frontend_batch(cfg, batch, seq, SEED, i)
+        if fe is not None:
+            bt["frontend"] = fe.to(dev)
+        batches.append(bt)
+    per_micro = attention_calls(cfg)
+    want = (n_micro * per_micro * (2 if remat != "none" else 1), n_micro * per_micro, n_micro * per_micro,
+            n_micro * ssd_calls(cfg, remat))
+    _reset_lm_counts()
+    step_ms, first_loss = [], None
+    counts = lambda: _launch_counts() + (ssd_intra_chunk_cuda.launches,)   # noqa: E731
+    wgmma = lambda: _wgmma_counts() + (ssd_intra_chunk_cuda.designs["wgmma"],)   # noqa: E731
+    with capture_first_backward() as seen, forbid_plain_versions():
+        for i in range(FAMILY_TRAIN_STEPS):
+            before, wg_before = counts(), wgmma()
+            t0 = time.perf_counter()
+            params, opt_state, metrics = step_fn(params, opt_state, batches[i])
+            loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])   # synchronises
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            launched = tuple(a - b for a, b in zip(counts(), before))
+            on_tc = tuple(a - b for a, b in zip(wgmma(), wg_before))
+            extra = {k: round(float(v), 5) for k, v in metrics.items() if k.startswith("moe_") and cfg.n_experts}
+            print(f"{arch} train step {i + 1}: loss {loss:.4f} grad_norm {gnorm:.4f} {step_ms[-1]:.1f} ms/step "
+                  f"{batch * seq / step_ms[-1] * 1e3:.0f} tokens/s, launches (flash fwd, dq, dkdv, ssd) {launched}, "
+                  f"of which wgmma {on_tc}{f', {extra}' if extra else ''}")
+            check(np.isfinite(loss) and np.isfinite(gnorm), f"{arch} step {i + 1}: loss {loss}, grad_norm {gnorm}")
+            check(launched == want, f"{arch} step {i + 1}: launches {launched}, expected {want}")
+            check(on_tc == want, f"{arch} step {i + 1}: {on_tc} launches took the tensor-core design, expected all")
+            first_loss = loss if first_loss is None else first_loss
+    # random logits of std sigma = 0.02 sqrt(d) (unit-RMS hidden states, a
+    # table drawn at 0.02): cross-entropy ln(vocab) + sigma^2 / 2
+    ln_v = float(np.log(cfg.vocab_size))
+    expect = ln_v + 0.5 * 0.02**2 * cfg.d_model
+    print(f"{arch} first loss {first_loss:.4f}: ln(vocab) {ln_v:.4f} + sigma^2/2 = {expect:.4f} (limit +-0.5)")
+    check(abs(first_loss - expect) <= 0.5, f"{arch}: the first loss {first_loss:.4f} is far from {expect:.4f}")
+    active = cfg.active_param_count() if cfg.family == "moe" else cfg.param_count()
+    mfu = 6 * active * batch * seq / (step_ms[-1] / 1e3) / PEAK_BF16_FLOP_PER_S
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"trained {arch} {FAMILY_TRAIN_STEPS} steps of {batch}x{seq} tokens (n_micro {n_micro}, remat {remat}) on "
+          f"{smi}: {n_params:,} parameters, step 2 {step_ms[-1]:.1f} ms, {batch * seq / step_ms[-1] * 1e3:.0f} tokens/s, "
+          f"mfu {mfu:.4f} (6 N_active tokens / step time / 989 TFLOP/s), max_memory_allocated {peak / 2**30:.2f} GiB")
+    launches = dict(zip(("flash_fwd", "dq", "dkdv", "ssd"), counts()))
+    device_ms, rows = profile_device(lambda: float(step_fn(params, opt_state, batches[-1])[2]["loss"]), runs=1)
+    print(f"profile one {arch} train step: device time {device_ms:.1f} ms, busy {device_ms / step_ms[-1]:.1%} of step 2")
+    for row in rows:
+        print(f"  {row}")
+    del params, opt_state, metrics, batches, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    shapes = {}
+    for kind in ("bwd_flash_bidir", "bwd_flash_cross"):
+        if kind in seen:
+            shapes[kind] = flash_bwd_at(f"{arch} {kind[4:]}", seen.pop(kind), smi)
+    if "bwd" in seen:
+        shapes["bwd_flash"] = flash_bwd_at(f"{arch} causal", seen.pop("bwd"), smi)
+    del seen
+    wall = time.perf_counter() - t_phase
+    print(f"{arch} training phase: {wall:.1f} s")
+    return {"launches": launches, "step_ms": step_ms,
+            "first_loss": first_loss, "mfu": mfu, "peak_bytes": peak, "step_device_ms": device_ms,
+            "shapes": shapes, "seconds": wall}
 
 
 def simt_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,

@@ -7,11 +7,12 @@ The torch twin of ``examples/serve_lm.py``; runs on the CUDA card unless
 ``--device`` names another.  Like the original it serves the reduced
 (smoke) config of ``--arch``, so it runs on the host in seconds;
 ``python -m repro_torch.launch.serve --arch <arch>`` serves the published
-width and depth.  ``--arch`` takes the port's served configurations:
-the dense decoders (the flash-attention kernel in every prefill on the
-card) and zamba2-7b (the flash and SSD kernels).  Weights are drawn from
-seed 0 and prompts from seed 1, as the original's ``PRNGKey(0)`` and
-``PRNGKey(1)``.  ``main`` returns the numbers it prints.
+width and depth.  ``--arch`` takes every configuration: the attention
+families launch the flash-attention kernel in every prefill on the card,
+the ssm and hybrid ones the SSD kernel.  Weights are drawn from seed 0,
+prompts from seed 1 and the vlm patch / encdec frame embeddings from
+seed 2, as the original's ``PRNGKey(0)``, ``PRNGKey(1)`` and
+``PRNGKey(2)``.  ``main`` returns the numbers it prints.
 """
 
 from __future__ import annotations
@@ -38,6 +39,18 @@ def make_prompts(cfg: ModelConfig, batch: int, prompt_len: int, seed: int) -> np
     return np.random.default_rng(seed).integers(0, cfg.vocab_size, (batch, prompt_len))
 
 
+def make_frontend(cfg: ModelConfig, batch: int, prompt_len: int, device: torch.device,
+                  seed: int) -> torch.Tensor | None:
+    """The original's frontend stub: vlm patch embeddings (batch,
+    frontend_tokens, frontend_dim), encdec frame embeddings (batch,
+    prompt_len, frontend_dim), standard normal; ``None`` otherwise."""
+    if cfg.family not in ("vlm", "encdec"):
+        return None
+    n = cfg.frontend_tokens if cfg.family == "vlm" else prompt_len
+    return torch.randn((batch, n, cfg.frontend_dim), generator=torch.Generator(device=device).manual_seed(seed),
+                       device=device)
+
+
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -59,13 +72,15 @@ def main(argv: list[str] | None = None) -> dict:
     prompts = torch.as_tensor(make_prompts(cfg, args.batch, args.prompt_len, 1),
                               dtype=torch.long, device=dev)
 
-    prefill = make_prefill_step(cfg, max_len=max_len)
+    frontend = make_frontend(cfg, args.batch, args.prompt_len, dev, 2)
+
+    prefill = make_prefill_step(cfg, max_len=max_len, remat="none")
     decode = make_decode_step(cfg)
     launches0 = (flash_attention_cuda.launches, ssd_intra_chunk_cuda.launches)
 
     _sync(dev)
     t0 = time.perf_counter()
-    tok, logits, cache = prefill(params, prompts)
+    tok, logits, cache = prefill(params, prompts, frontend)
     tok = tok[:, None]
     _sync(dev)
     t_prefill = time.perf_counter() - t0
@@ -73,7 +88,7 @@ def main(argv: list[str] | None = None) -> dict:
     print(f"prefill: {args.batch} x {args.prompt_len} tokens in {t_prefill*1e3:.0f} ms "
           f"({args.batch*args.prompt_len/t_prefill:.0f} tok/s)")
 
-    pos0 = args.prompt_len
+    pos0 = args.prompt_len + (cfg.frontend_tokens if cfg.family == "vlm" else 0)
     outputs = [tok]
     t0 = time.perf_counter()
     for step in range(args.tokens - 1):

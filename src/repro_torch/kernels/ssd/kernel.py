@@ -96,7 +96,7 @@ def ssd_intra_chunk_cuda(
     chunk_decay (b,nc,h))``.  A CPU ``xbar`` takes
     :func:`ssd_intra_chunk_ref`; a CUDA one launches the kernel on the
     current stream, or raises (also when grad mode is on and an input
-    requires grad: the kernel has no backward).  Every launch adds one to
+    requires grad: the gradient is :class:`~repro_torch.kernels.ssd.bwd.SSDIntraChunk`'s).  Every launch adds one to
     ``ssd_intra_chunk_cuda.launches`` and to its design's count in
     ``ssd_intra_chunk_cuda.designs`` (:func:`design`).
     """
@@ -105,8 +105,9 @@ def ssd_intra_chunk_cuda(
     if torch.is_grad_enabled() and any(t.requires_grad for t in (xbar, Bh, Ch, cum)):
         # the kernel's outputs would carry no grad_fn and drop these gradients
         raise RuntimeError(
-            "ssd_intra_chunk_cuda has no backward yet (ROADMAP.md queue A item 7: hybrid "
-            "training needs an SSD backward first); call it under torch.no_grad()"
+            "ssd_intra_chunk_cuda has no backward of its own: under autograd call "
+            "SSDIntraChunk.apply (kernels/ssd/bwd.py: this kernel's forward and a closed-form "
+            "backward), or call it under torch.no_grad()"
         )
     _check(xbar, Bh, Ch, cum)
     b, nc, q, h, p = xbar.shape

@@ -1,7 +1,10 @@
 """Full chunked SSD: the intra-chunk kernel plus the inter-chunk recurrence
 (a loop of torch ops over chunks).  Same contract as
 :func:`repro_torch.models.ssm.ssd_chunked`, which runs this body with the
-plain intra-chunk version."""
+plain intra-chunk version.  Under autograd the intra-chunk piece goes
+through :class:`~repro_torch.kernels.ssd.bwd.SSDIntraChunk` (the kernel
+forward, a closed-form backward); the recurrence is differentiated by
+autograd."""
 
 from __future__ import annotations
 
@@ -10,7 +13,7 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_cuda
+from repro_torch.kernels.ssd.bwd import ssd_intra_chunk
 
 __all__ = ["ssd_chunked"]
 
@@ -24,13 +27,14 @@ def ssd_chunked(
     *,
     chunk: int = 128,
     initial_state: torch.Tensor | None = None,
-    intra_chunk: Callable = ssd_intra_chunk_cuda,
+    intra_chunk: Callable = ssd_intra_chunk,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD scan.  x (b,l,h,p), dt (b,l,h), A (h,), B/C (b,l,g,n).
     Returns (y (b,l,h,p) in x's dtype, final_state (b,h,p,n) f32).
 
-    ``intra_chunk`` defaults to the kernel's wrapper (CUDA kernel on the
-    card, plain version on the host).  One state group is broadcast over
+    ``intra_chunk`` defaults to :func:`~repro_torch.kernels.ssd.bwd.ssd_intra_chunk`
+    (the CUDA kernel on the card, its plain version on the host; under
+    autograd the Function with the closed-form backward).  One state group is broadcast over
     the heads as a stride-0 view, never copied; several groups are
     repeated, as the reference does."""
     b, l, h, p = x.shape

@@ -6,7 +6,11 @@
         --device cpu --steps 3 --global-batch 4 --seq-len 32 --ckpt-dir /tmp/ckpt
 
 The port of ``repro.launch.train``, with the same flags plus ``--device``
-(the CUDA card unless it names another).  Random weights from ``--seed``.
+(the CUDA card unless it names another); ``--arch`` takes every
+configuration of ``repro_torch.configs.ARCHS``.  Random weights from
+``--seed``.  vlm and encdec batches carry the frontend stub's embeddings
+(:func:`frontend_batch`); a vlm step's ``--seq-len`` counts the
+``frontend_tokens`` patches, as the reference's does.
 * checkpoints every ``--ckpt-every`` steps (atomic rename, retention 3) and
   at the end;
 * SIGTERM/SIGINT: a final checkpoint and a clean exit 0;
@@ -31,12 +35,25 @@ import torch
 from repro_torch.configs import ARCHS, reduce_for_smoke
 from repro_torch.data.pipeline import LMStreamConfig, PrefetchIterator, SyntheticLM
 from repro_torch.device import resolve_device
+from repro_torch.models.layers import require_ieee_f32
 from repro_torch.models.transformer import init_model
 from repro_torch.training.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from repro_torch.training.optimizer import AdamWConfig, init_adamw
 from repro_torch.training.train_step import make_train_step
 
-__all__ = ["main"]
+__all__ = ["frontend_batch", "main"]
+
+
+def frontend_batch(cfg, batch: int, seq_len: int, seed: int, step: int) -> torch.Tensor | None:
+    """A step's frontend stub, standard normal f32 on the host from a torch
+    generator seeded by (``seed``, ``step``), so a resumed run draws the
+    same: vlm (batch, frontend_tokens, frontend_dim) patches, encdec
+    (batch, seq_len, frontend_dim) frames, else ``None``."""
+    if cfg.family not in ("vlm", "encdec"):
+        return None
+    n = cfg.frontend_tokens if cfg.family == "vlm" else seq_len
+    gen = torch.Generator().manual_seed(seed * 1_000_003 + step)
+    return torch.randn((batch, n, cfg.frontend_dim), generator=gen)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -60,6 +77,7 @@ def main(argv: list[str] | None = None) -> int:
     if args.smoke:
         cfg = reduce_for_smoke(cfg)
     dev = resolve_device(args.device)
+    require_ieee_f32()
     params = init_model(cfg, generator=torch.Generator(device=dev).manual_seed(args.seed), device=dev)
     opt_state = init_adamw(params)
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=20, total_steps=args.steps)
@@ -72,9 +90,19 @@ def main(argv: list[str] | None = None) -> int:
         start_step = int(extra["step"])
         print(f"[train] resumed from step {start_step}", flush=True)
 
-    stream = SyntheticLM(LMStreamConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
+    # vlm: the patches take frontend_tokens of the sequence, the text the rest
+    text_len = args.seq_len - (cfg.frontend_tokens if cfg.family == "vlm" else 0)
+    stream = SyntheticLM(LMStreamConfig(vocab_size=cfg.vocab_size, seq_len=text_len,
                                         global_batch=args.global_batch, seed=args.seed))
-    prefetch = PrefetchIterator(stream.batch_at, start_step=start_step, timeout_s=120.0)
+
+    def make_batch(step: int) -> dict:
+        batch = {k: torch.as_tensor(np.asarray(v), dtype=torch.long) for k, v in stream.batch_at(step).items()}
+        fe = frontend_batch(cfg, args.global_batch, args.seq_len, args.seed, step)
+        if fe is not None:
+            batch["frontend"] = fe
+        return batch
+
+    prefetch = PrefetchIterator(make_batch, start_step=start_step, timeout_s=120.0)
 
     stop = {"signal": None}
 
@@ -99,7 +127,7 @@ def main(argv: list[str] | None = None) -> int:
         while step < args.steps and stop["signal"] is None:
             got_step, batch = next(prefetch)
             assert got_step == step, f"pipeline cursor mismatch {got_step} != {step}"
-            batch = {k: torch.as_tensor(v, dtype=torch.long, device=dev) for k, v in batch.items()}
+            batch = {k: v.to(dev) for k, v in batch.items()}
             t0 = time.perf_counter()
             params, opt_state, metrics = step_fn(params, opt_state, batch)
             losses.append(float(metrics["loss"]))   # synchronises with the card

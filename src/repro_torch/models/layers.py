@@ -32,6 +32,10 @@ __all__ = [
     "dense",
     "init_swiglu",
     "swiglu",
+    "init_mlp",
+    "mlp",
+    "gelu",
+    "require_ieee_f32",
     "init_embedding",
     "embed",
     "unembed",
@@ -177,6 +181,39 @@ def init_swiglu(
 
 def swiglu(params: dict, x: torch.Tensor) -> torch.Tensor:
     return dense(params["down"], F.silu(dense(params["gate"], x)) * dense(params["up"], x))
+
+
+def init_mlp(
+    d: int,
+    d_ff: int,
+    *,
+    dtype: torch.dtype = torch.bfloat16,
+    lead: tuple = (),
+    generator: torch.Generator | None = None,
+    device: str | torch.device | None = None,
+) -> dict:
+    """Plain GELU MLP (the Seamless enc-dec backbone)."""
+    kw = dict(dtype=dtype, lead=lead, generator=generator, device=device)
+    return {"up": init_dense(d, d_ff, **kw), "down": init_dense(d_ff, d, **kw)}
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation (torch's default is
+    the erf form)."""
+    return F.gelu(x, approximate="tanh")
+
+
+def mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
+    return dense(params["down"], gelu(dense(params["up"], x)))
+
+
+def require_ieee_f32() -> None:
+    """Raise unless f32 matmuls run in IEEE f32 (PyTorch's default,
+    ``torch.get_float32_matmul_precision() == "highest"``): the moe router
+    picks its top-k from f32 logits, and TF32 would move its choices."""
+    if torch.get_float32_matmul_precision() != "highest":
+        raise RuntimeError("f32 matmuls must run in IEEE f32: torch.get_float32_matmul_precision() is "
+                           f"{torch.get_float32_matmul_precision()!r}, not 'highest'")
 
 
 def init_embedding(

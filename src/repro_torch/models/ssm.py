@@ -6,7 +6,10 @@ recurrence is a (Q x Q) masked attention-like contraction
 chunks only the (H, P, N) states propagate, in a loop of torch ops.
 :func:`mamba2_block` runs the chunked scan through
 :func:`repro_torch.kernels.ssd.ops.ssd_chunked`, which launches the kernel
-on the card; :func:`ssd_decode_step` is the O(1)-state serving step.
+on the card (under autograd through
+:class:`~repro_torch.kernels.ssd.bwd.SSDIntraChunk`, whose backward is the
+closed-form gradient); :func:`ssd_decode_step` is the O(1)-state serving
+step.
 
 Shapes: x (B, L, H, P), dt (B, L, H), A (H,), B/C (B, L, G, N); G (state
 groups) broadcasts over heads.

@@ -14,11 +14,14 @@ def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
-def make_prefill_step(cfg: ModelConfig, *, max_len: int | None = None):
-    """``prefill_step(params, tokens) -> (next token (B,), logits (B, V), cache)``."""
+def make_prefill_step(cfg: ModelConfig, *, max_len: int | None = None, remat: str = "dots"):
+    """``prefill_step(params, tokens, frontend_embeds=None) -> (next token
+    (B,), logits (B, V), cache)``; ``frontend_embeds`` are the vlm patch or
+    encdec frame embeddings (:func:`forward_prefill`).  ``remat`` keeps the
+    reference's signature and is ignored: prefill runs without autograd."""
 
-    def prefill_step(params, tokens):
-        logits, cache = forward_prefill(params, cfg, tokens, max_len=max_len)
+    def prefill_step(params, tokens, frontend_embeds=None):
+        logits, cache = forward_prefill(params, cfg, tokens, frontend_embeds=frontend_embeds, max_len=max_len)
         return greedy_sample(logits), logits, cache
 
     return prefill_step

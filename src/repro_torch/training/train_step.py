@@ -5,6 +5,8 @@ batch) -> (params, opt_state, metrics)``, the port of
 ``repro.training.train_step``: each microbatch's gradients (the params'
 dtype) are added into f32 accumulators, averaged, and applied once per
 step.  The params are made leaves that require grad on the first call.
+A batch is ``tokens``, ``labels``[, ``loss_mask``][, ``frontend``: the vlm
+patch or encdec frame embeddings], each split along its batch axis.
 """
 
 from __future__ import annotations
@@ -59,7 +61,9 @@ def make_train_step(
         leaves = [p.requires_grad_() for p in tree_leaves(params)]
         acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
         loss_sum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-        metric_sums = {k: torch.zeros_like(loss_sum) for k in METRIC_KEYS}
+        # the reference's metrics: encdec reports ce_loss alone
+        keys = ("ce_loss",) if cfg.family == "encdec" else METRIC_KEYS
+        metric_sums = {k: torch.zeros_like(loss_sum) for k in keys}
         for i in range(n_micro):
             micro = {k: v[i * mb : (i + 1) * mb] for k, v in batch.items()}
             loss, metrics = forward_train(params, cfg, micro, remat=remat)
@@ -68,7 +72,7 @@ def make_train_step(
                 a.add_(g)
             del grads
             loss_sum += loss.detach()
-            for k in METRIC_KEYS:
+            for k in keys:
                 metric_sums[k] += metrics[k].detach()
         torch._foreach_div_(acc, float(n_micro))
         params, opt_state, opt_metrics = adamw_update(tree_unflatten(params, acc), opt_state, params, opt_cfg)

@@ -217,11 +217,14 @@ def test_adaptive_stream_matches_its_original(monkeypatch, capsys, bucket_model,
     assert res["fanout_batches"] == 40 and (tmp_path / "adaptive_stream_torch_telemetry.jsonl").exists()
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "h2o-danube-1.8b"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "h2o-danube-1.8b", "granite-moe-3b-a800m", "mamba2-2.7b",
+                                  "internvl2-76b", "seamless-m4t-medium"])
 def test_serve_lm_matches_its_original(monkeypatch, capsys, arch):
-    """The original's weights and prompts (``jax.random``) carried across:
-    the prompt sizes and the printed greedy tokens (the first sequence)
-    equal.  danube's prompt (40) runs past its smoke window (32)."""
+    """The original's weights, prompts and frontend embeddings
+    (``jax.random``) carried across: the prompt sizes and the printed
+    greedy tokens (the first sequence) equal.  danube's prompt (40) runs
+    past its smoke window (32); internvl2 prepends 4 patch embeddings,
+    seamless encodes 40 frames."""
     ref, tw = _load("serve_lm.py"), _load("serve_lm_torch.py")
     jcfg = jax_reduce(JAX_ARCHS[arch])
     jp = jt.init_model(jax.random.PRNGKey(0), jcfg)
@@ -229,6 +232,14 @@ def test_serve_lm_matches_its_original(monkeypatch, capsys, arch):
         jax.tree.map(np.asarray, jp), device=dev))
     monkeypatch.setattr(tw, "make_prompts", lambda cfg, b, s, seed: np.array(
         jax.random.randint(jax.random.PRNGKey(1), (b, s), 0, cfg.vocab_size)))
+
+    def frontend(cfg, b, s, dev, seed):
+        if cfg.family not in ("vlm", "encdec"):
+            return None
+        n = cfg.frontend_tokens if cfg.family == "vlm" else s
+        return torch.from_numpy(np.array(jax.random.normal(jax.random.PRNGKey(seed), (b, n, cfg.frontend_dim))))
+
+    monkeypatch.setattr(tw, "make_frontend", frontend)
     argv = ["--arch", arch, "--batch", "3", "--prompt-len", "40", "--tokens", "8"]
     want, got, res = _run(ref, tw, capsys, monkeypatch, argv)
     drop = (r"in \d+ ms \(\d+ tok/s\)",)

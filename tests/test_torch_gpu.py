@@ -605,6 +605,9 @@ FWD_TC_GRID = [
     (1, 333, 77, 2, 2, 128, True, None),       # Sq > Sk, causal
     (1, 1100, 1100, 16, 8, 128, True, 300),    # many tiles, heaviest first, window
     (1, 700, 700, 8, 2, 80, True, 256),        # danube's head dim (padded to 128) under a window
+    (1, 300, 700, 16, 16, 64, False, None),    # seamless cross-attention: Sq != Sk, Sk ragged, D = 64
+    (1, 700, 700, 16, 16, 64, False, None),    # seamless encoder: bidirectional, ragged
+    (1, 600, 600, 24, 8, 64, True, None),      # granite's GQA heads, D = 64
 ]
 
 
@@ -663,6 +666,9 @@ BWD_GRID = [
     (1, 160, 160, 4, 2, 96, True, None),     # D = 96: bf16 pads the head dim to 128
     (1, 150, 150, 4, 2, 40, True, None),     # D = 40 (not a multiple of 16): SIMT in bf16 too
     (1, 1024, 1024, 8, 2, 128, True, None),  # causal GQA over many tiles, heaviest first
+    (1, 300, 700, 16, 16, 64, False, None),  # seamless cross-attention: Sq != Sk, Sk ragged, D = 64
+    (1, 700, 700, 16, 16, 64, False, None),  # seamless encoder: bidirectional, ragged
+    (1, 600, 600, 24, 8, 64, True, None),    # granite's GQA heads, D = 64
 ]
 
 
@@ -1022,3 +1028,102 @@ def test_dense_smoke_serving_launches_the_flash_kernel_and_matches_the_host(cuda
 
 def _to(tree, dev):
     return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+
+def test_ssd_function_gradients_on_the_card_match_the_host(cuda):
+    """SSDIntraChunk (the kernel forward, the closed-form backward) through
+    ssd_chunked at a width whose chunks take the tensor-core design (q = 128,
+    p = 64, n = 128, one group as a stride-0 view): outputs and gradients
+    within 1e-4 of max|value| of the host's (the tensor-core forward's split
+    products, f32 sums in another order); one launch, no plain version."""
+    g = torch.Generator().manual_seed(0)
+    b, l, h, p, n = 1, 300, 4, 64, 128
+    host = [torch.randn((b, l, h, p), generator=g), 0.3 * torch.rand((b, l, h), generator=g),
+            -torch.rand(h, generator=g) - 0.5, torch.randn((b, l, 1, n), generator=g),
+            torch.randn((b, l, 1, n), generator=g)]
+    results = []
+    for dev in ("cpu", cuda):
+        ts = [t.to(dev).requires_grad_() for t in host]
+        before = ssd_intra_chunk_cuda.launches
+        y, s = ssd_ops.ssd_chunked(*ts, chunk=128)
+        grads = torch.autograd.grad(y.square().sum() + s.sum(), ts)
+        results.append([y.detach().cpu(), s.detach().cpu()] + [x.cpu() for x in grads])
+        launched = ssd_intra_chunk_cuda.launches - before
+    assert launched == 1
+    for got, want in zip(results[1], results[0]):
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+_FAMILY_ARCHS = ["granite-moe-3b-a800m", "qwen2-moe-a2.7b", "mamba2-2.7b", "internvl2-76b", "seamless-m4t-medium"]
+
+
+def _frontend(cfg, b: int, n_src: int):
+    if cfg.family not in ("vlm", "encdec"):
+        return None
+    n = cfg.frontend_tokens if cfg.family == "vlm" else n_src
+    return torch.randn((b, n, cfg.frontend_dim), generator=torch.Generator().manual_seed(2))
+
+
+@pytest.mark.parametrize("arch", _FAMILY_ARCHS)
+def test_family_smoke_serving_on_the_card_matches_the_host(cuda, arch):
+    """Prefill (encdec: 150 frames, a ragged key tile) and 3 decode steps of
+    each remaining family on the narrow f32 config: card logits within 1e-4
+    of the host's, the flash and SSD launches one per call, none in decode."""
+    cfg = reduce_for_smoke(ARCHS[arch])
+    host = init_model(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    card = _to(host, cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 200), generator=torch.Generator().manual_seed(1))
+    fe = _frontend(cfg, 2, 150)
+    off = cfg.frontend_tokens if cfg.family == "vlm" else 0
+    before = (flash_attention_cuda.launches, ssd_intra_chunk_cuda.launches)
+    logits, cache = forward_prefill(card, cfg, tokens.to(cuda), frontend_embeds=None if fe is None else fe.to(cuda),
+                                    max_len=off + 208)
+    flash = {"encdec": cfg.n_enc_layers + 2 * cfg.n_layers, "ssm": 0}.get(cfg.family, cfg.n_layers)
+    assert (flash_attention_cuda.launches - before[0], ssd_intra_chunk_cuda.launches - before[1]) == (
+        flash, cfg.n_layers if cfg.family == "ssm" else 0)
+    want, want_cache = forward_prefill(host, cfg, tokens, frontend_embeds=fe, max_len=off + 208)
+    torch.testing.assert_close(logits.cpu(), want, rtol=1e-4, atol=1e-4)
+    for step in range(3):
+        nxt = want.argmax(-1, keepdim=True)
+        mid = (flash_attention_cuda.launches, ssd_intra_chunk_cuda.launches)
+        logits, cache = forward_decode(card, cfg, nxt.to(cuda), cache, off + 200 + step)
+        assert (flash_attention_cuda.launches, ssd_intra_chunk_cuda.launches) == mid
+        want, want_cache = forward_decode(host, cfg, nxt, want_cache, off + 200 + step)
+        torch.testing.assert_close(logits.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", _FAMILY_ARCHS + ["zamba2-7b"])
+def test_family_smoke_training_on_the_card_matches_the_host_under_every_remat(cuda, arch):
+    """Loss and gradients of each family's narrow f32 config on the card
+    within 1e-5 / 1e-4 of max|value| of the host's; on the card the
+    gradients under full, dots and dots_no_batch equal those under none bit
+    for bit, and each recomputing policy launches the flash forward twice a
+    layer.  The tokens are distinct (a permutation of the vocabulary): the
+    embedding's backward sums repeated tokens with atomic adds on the card,
+    in an order that changes from run to run."""
+    cfg = reduce_for_smoke(ARCHS[arch])
+    host = init_model(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    card = _to(host, cuda)
+    rng = torch.Generator().manual_seed(3)
+    batch = {k: torch.randperm(cfg.vocab_size, generator=rng)[:192].reshape(2, 96) for k in ("tokens", "labels")}
+    fe = _frontend(cfg, 2, 80)
+    if fe is not None:
+        batch["frontend"] = fe
+    host_leaves = [t.requires_grad_() for t in tree_leaves(host)]
+    card_leaves = [t.requires_grad_() for t in tree_leaves(card)]
+    want_loss, _ = forward_train(host, cfg, batch, remat="none")
+    want = torch.autograd.grad(want_loss, host_leaves)
+    card_batch = {k: v.to(cuda) for k, v in batch.items()}
+    got = {}
+    for remat in ("none", "full", "dots", "dots_no_batch"):
+        before = flash_attention_cuda.launches
+        loss, _ = forward_train(card, cfg, card_batch, remat=remat)
+        got[remat] = (loss.detach(), torch.autograd.grad(loss, card_leaves), flash_attention_cuda.launches - before)
+    loss, grads, n_fwd = got["none"]
+    assert abs(float(loss) - float(want_loss.detach())) <= 1e-5
+    for x, w in zip(grads, want):
+        assert float((x.cpu() - w).abs().max()) <= 1e-4 * max(float(w.abs().max()), 1e-30)
+    for remat in ("full", "dots", "dots_no_batch"):
+        assert torch.equal(got[remat][0], loss), remat
+        assert all(torch.equal(a, b) for a, b in zip(got[remat][1], grads)), remat
+        assert got[remat][2] == 2 * n_fwd, remat

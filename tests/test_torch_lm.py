@@ -172,19 +172,31 @@ def test_entry_points_need_a_device_without_a_card(monkeypatch):
 
 @pytest.mark.parametrize("family", ["dense", "moe", "ssm", "vlm", "encdec"])
 def test_other_families_are_not_ported_yet(family):
-    cfg = dataclasses.replace(reduce_for_smoke(ARCHS["zamba2-7b"]), family=family)
-    if family == "dense":
-        # dense serves (tests/test_torch_dense_serving.py) and trains
-        # (tests/test_torch_train.py); hybrid serves but does not train yet
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pt.forward_train({}, reduce_for_smoke(ARCHS["zamba2-7b"]), {})
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.init_model(cfg, generator=torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.forward_prefill({}, cfg, torch.zeros((1, 4), dtype=torch.long))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.forward_train({}, cfg, {})
+    """Every family is ported now (this test once pinned the
+    NotImplementedError of the families still to come): init_model,
+    init_cache, forward_prefill, forward_decode and forward_train of each
+    raise nothing and give finite numbers (tests/test_torch_families.py
+    holds them against the reference)."""
+    arch = {"dense": "qwen3-1.7b", "moe": "granite-moe-3b-a800m", "ssm": "mamba2-2.7b",
+            "vlm": "internvl2-76b", "encdec": "seamless-m4t-medium"}[family]
+    cfg = reduce_for_smoke(ARCHS[arch])
+    assert cfg.family == family and not hasattr(pt, "_require")
+    params = pt.init_model(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 12)))
+    fe = None
+    if family in ("vlm", "encdec"):
+        n = cfg.frontend_tokens if family == "vlm" else 12
+        fe = torch.randn((2, n, cfg.frontend_dim), generator=torch.Generator().manual_seed(1))
+    assert pt.init_cache(cfg, 2, 16, device="cpu")
+    logits, cache = pt.forward_prefill(params, cfg, toks, frontend_embeds=fe, max_len=24)
+    pos = 12 + (cfg.frontend_tokens if family == "vlm" else 0)
+    logits2, _ = pt.forward_decode(params, cfg, toks[:, :1], cache, pos)
+    batch = {"tokens": toks, "labels": toks}
+    if fe is not None:
+        batch["frontend"] = fe
+    loss, metrics = pt.forward_train(params, cfg, batch)
+    assert all(bool(torch.isfinite(t).all()) for t in (logits, logits2, loss))
+    assert logits.shape == logits2.shape == (2, cfg.vocab_size)
 
 
 def test_ssd_kernel_wrapper_refuses_inputs_that_need_a_gradient():

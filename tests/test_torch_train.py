@@ -127,9 +127,14 @@ def test_forward_train_loss_and_grads_match_the_reference(f32, remat, b, s, mask
 
 
 def test_remat_policies_the_port_lacks_raise(f32):
+    """The port has all four of the reference's policies, ``dots`` the
+    default as in the reference; a name that is none of them raises."""
     _, cfg, _, tp = f32
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.forward_train(tp, cfg, _torch_batch(_batch(1, 8)), remat="dots")
+    assert pt.REMAT_POLICIES == tuple(jt.REMAT_POLICIES) == ("none", "full", "dots", "dots_no_batch")
+    with pytest.raises(ValueError, match="unknown remat policy"):
+        pt.forward_train(tp, cfg, _torch_batch(_batch(1, 8)), remat="offload")
+    batch = _torch_batch(_batch(1, 8))
+    assert torch.equal(pt.forward_train(tp, cfg, batch)[0], pt.forward_train(tp, cfg, batch, remat="dots")[0])
 
 
 def _random_tree(like: list, seed: int) -> list[np.ndarray]:
