@@ -69,6 +69,19 @@ then, through the same kernel, the model zoo and int8 head serving:
    (K = 32) interleaved on one shared graph, each segment against the
    camera's own ``run_segment`` bit for bit, the allocation gauges summing
    to the budget, ``assert_reconciled`` and ``render_fleet_report``;
+7d'. the launch tooling on a one-rank NCCL mesh over the card
+   (``launch/mesh.py::make_host_mesh``): the fleet of ``tests/test_fleet.py``
+   (3 cameras, 10 ticks), the cameras above on a ``StreamServer`` (16
+   ticks) and the 256-request mix, each with ``mesh=`` (every fused batch's
+   rows through the fpca kernel, then a real ``all_gather_into_tensor``)
+   and without, equal bit for bit with the same launches by design
+   (``sharded_serving_phase``); then the production FPCA cell
+   (``launch/fpca_cell.py``: video_1080, 256 frames of 1120x1120x3, and
+   sensor_4k, 32 of 2240x2240x3) at full size, every window in one launch
+   (M = 12,845,056 and 6,422,528), its counts against the plain version on
+   the first and last 200,000 windows, the step's host and device ms, busy
+   share and frames/s, the kernel's ms against its bound, and the step's
+   roofline terms on the H100 constants (``fpca_cell_phase``);
 
 7e. trains the FPCA training example (``examples/train_fpca_cnn_torch.py``
    at its defaults: 60x60x3 frames, 8 channels of 5x5 at stride 5, 4-bit
@@ -163,7 +176,11 @@ then, with the served weights freed, the training path
    forward, dQ and dK/dV launch of a step must take the tensor-core design,
    and ptxas must report no spill for any tensor-core kernel, flash, SSD or
    fpca (printed after the build), and no serialised wgmma in the SSD or
-   fpca one;
+   fpca one; then int8 gradient compression with error feedback
+   (``training/compression.py``) over one microbatch's gradients of the
+   trained weights: its time, each leaf's residual within half its int8
+   step, and ``sync_grads_compressed`` on the one-rank mesh returning the
+   round trip unchanged (``compression_phase``);
 
 then the remaining families, each model's weights freed before the next:
 
@@ -196,6 +213,12 @@ then the remaining families, each model's weights freed before the next:
    against the host's plain path (remat none and dots), and
    ``SSDIntraChunk``'s gradients on the card against the host's.
 
+18. the dry run (``python -m repro_torch.launch.dryrun``, subprocesses on
+   torch's fake process group, nothing on the card): qwen3-1.7b x train_4k
+   on the 256-rank mesh and the FPCA cell on the 256- and 512-rank meshes,
+   each record's roofline terms and per-rank bytes printed
+   (``dryrun_phase``).
+
 It prints one JSON line ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {...}}``; a failed phase exits non-zero before
 that line, as does a host with no CUDA device.
@@ -225,8 +248,9 @@ import torch  # noqa: E402
 
 from repro_torch import fpca  # noqa: E402
 from repro_torch.configs import fpca_cnn  # noqa: E402
+from repro_torch.core.adc import ADCConfig  # noqa: E402
 from repro_torch.core.curvefit import fit_bucket_model  # noqa: E402
-from repro_torch.core.fpca_sim import encode_weights, extract_windows, fpca_forward  # noqa: E402
+from repro_torch.core.fpca_sim import WeightEncoding, encode_weights, extract_windows, fpca_forward  # noqa: E402
 from repro_torch.core.frontend import FPCAFrontend  # noqa: E402
 from repro_torch.core.mapping import active_window_mask, output_dims  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -251,6 +275,7 @@ from repro_torch.kernels.ssd import kernel as ssd_kernel  # noqa: E402
 from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_cuda  # noqa: E402
 from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.launch.serve import frontend_inputs, serve  # noqa: E402
 from repro_torch.launch.train import frontend_batch  # noqa: E402
 from repro_torch.models import ssm as ssm_module  # noqa: E402
@@ -259,7 +284,7 @@ from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.transformer import forward_decode, forward_prefill, forward_train, init_model  # noqa: E402
 from repro_torch.training.optimizer import AdamWConfig, init_adamw  # noqa: E402
 from repro_torch.training.train_step import make_train_step  # noqa: E402
-from repro_torch.training.tree import tree_leaves  # noqa: E402
+from repro_torch.training.tree import tree_leaves, tree_unflatten  # noqa: E402
 
 SEED = 0
 BATCHES = (1, 64, 256)
@@ -306,6 +331,14 @@ FLEET_CONFIG, FLEET_TARGET = {"budget": 2.4, "floor": 0.02, "rebalance_ticks": 8
 # which the fan-out is held against each config served alone (a keyframe
 # period and a refresh)
 SERVER_WARM, FAN_SOLO_TICKS = 4, 32
+# the launch tooling: the sharded fleet of tests/test_fleet.py (cameras,
+# ticks) and the server's cameras for SHARD_SERVER_TICKS ticks, with and
+# without a one-rank mesh; the production FPCA cell's kernel counts held
+# against the plain version on its first and last FPCA_CELL_CHECK_ROWS
+# windows; the dry run's subprocesses' time limit
+SHARD_FLEET_CAMERAS, SHARD_FLEET_TICKS, SHARD_SERVER_TICKS = 3, 10, 16
+FPCA_CELL_CHECK_ROWS = 200_000
+DRYRUN_TIMEOUT_S = 300
 # the FPCA training path (examples/train_fpca_cnn_torch.py at its defaults,
 # read from the example: STEPS AdamW steps of BATCH per mode, ADC_BITS,
 # NVM_LEVELS); the card-vs-host check at 20x20 frames, 4 channels, batch 4;
@@ -716,11 +749,21 @@ def main() -> None:
     step("stacked launch")
     serving["fleet"] = fleet_phase(dev, smi, models, cams)
     step("fleet")
+    t_tooling = time.perf_counter()
+    mesh = make_host_mesh(device=dev)           # a world-1 NCCL group over the card
+    tooling = {"sharded_serving": sharded_serving_phase(dev, smi, models, cams, mesh)}
+    step("sharded serving")
+    tooling["production_cell"] = fpca_cell_phase(dev, smi, bucket_model, mesh)
+    step("production fpca cell")
+    t_tooling = time.perf_counter() - t_tooling
+    for part in ("sharded_serving", "production_cell"):
+        by_path.update(tooling[part].pop("launches"))
     for part in ("pipeline", "server", "fleet"):
         by_path.update(serving[part].pop("launches"))
     fpca_entry["launches"] = sum(by_path.values())
     fpca_entry["launches_by_path"] = by_path
     fpca_entry["serving"] = serving
+    fpca_entry["launch_tooling"] = tooling
     del cams
     serving["seconds_by_step"] = step.report("multi-camera serving")
     print(f"multi-camera serving phases: {time.perf_counter() - t_serving:.1f} s (target: about 60 s more than "
@@ -746,7 +789,8 @@ def main() -> None:
     flash_entry["launches_by_path"] = flash_by_path
     gc.collect()
     torch.cuda.empty_cache()
-    bwd_entries, flash_entry["trained"] = train_phase(dev, smi)
+    bwd_entries, flash_entry["trained"] = train_phase(dev, smi, mesh)
+    tooling["compression"] = flash_entry["trained"].pop("compression")
     t_families = time.perf_counter()
     families = {}
     for arch in FAMILY_SERVING:
@@ -761,6 +805,11 @@ def main() -> None:
     checks["ssd function"] = ssd_function_vs_host(dev)
     print(f"remaining-families phases: {time.perf_counter() - t_families:.1f} s (target: about 150 s)")
     fold_families(flash_entry, ssd_entry, bwd_entries, families, checks)
+    torch.distributed.destroy_process_group()
+    t0 = time.perf_counter()
+    tooling["dryrun"] = dryrun_phase(smi)
+    t_tooling += time.perf_counter() - t0 + tooling["compression"]["seconds"]
+    print(f"launch-tooling phases: {t_tooling:.1f} s (target: at most about 90 s)")
     kernels = [fpca_entry, flash_entry, ssd_entry] + bwd_entries
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
@@ -1331,18 +1380,11 @@ def _host_out(x) -> torch.Tensor:
     return _raw(x).detach()
 
 
-def pipeline_phase(dev: torch.device, smi: str, models: dict) -> dict:
-    """Serve a seeded mix of PIPE_REQUESTS requests over the six registered
-    names through ``FPCAPipeline.serve``, with cross-config batching off and
-    on; check launches and designs per group, every result against its
-    config's own ``fpca.compile`` handle on the same group batch (bit for
-    bit), merged against unmerged (bit for bit where the designs agree; the
-    merged group's stacked SIMT launch against unmerged SIMT launches bit
-    for bit and against the served tensor-core ones within the fpca limit);
-    time serve (median of PIPE_TIMED)."""
+def pipeline_mix(dev: torch.device, configs: list) -> tuple[torch.Tensor, list]:
+    """The seeded mix of PIPE_REQUESTS requests over the registered names,
+    PIPE_MASKED of them with a block mask: (frames on the card, requests)."""
     from repro_torch.serving import FrontendRequest
 
-    configs = pipeline_configs(dev)
     by_name = {c[0]: c for c in configs}
     rng = np.random.default_rng(SEED + 60)
     g = torch.Generator().manual_seed(SEED + 61)
@@ -1357,6 +1399,21 @@ def pipeline_phase(dev: torch.device, smi: str, models: dict) -> dict:
             bh, bw = -(-spec.eff_h // spec.skip_block), -(-spec.eff_w // spec.skip_block)
             mask = rng.random((bh, bw)) < 0.4
         reqs.append(FrontendRequest(name, frames[i], mask))
+    return frames, reqs
+
+
+def pipeline_phase(dev: torch.device, smi: str, models: dict) -> dict:
+    """Serve a seeded mix of PIPE_REQUESTS requests over the six registered
+    names through ``FPCAPipeline.serve``, with cross-config batching off and
+    on; check launches and designs per group, every result against its
+    config's own ``fpca.compile`` handle on the same group batch (bit for
+    bit), merged against unmerged (bit for bit where the designs agree; the
+    merged group's stacked SIMT launch against unmerged SIMT launches bit
+    for bit and against the served tensor-core ones within the fpca limit);
+    time serve (median of PIPE_TIMED)."""
+    configs = pipeline_configs(dev)
+    by_name = {c[0]: c for c in configs}
+    frames, reqs = pipeline_mix(dev, configs)
     out: dict = {"launches": {}}
     served = {}
     for cross in (False, True):
@@ -1850,6 +1907,259 @@ def fleet_phase(dev: torch.device, smi: str, models: dict, cams: dict) -> dict:
 # ---------------------------------------------------------------------------
 # the FPCA training path: examples/train_fpca_cnn_torch.py on the card
 # ---------------------------------------------------------------------------
+
+
+# ---------------------------------------------------------------------------
+# the launch tooling: data-parallel serving on a one-rank mesh, the
+# production FPCA cell, int8 gradient compression, the dry run
+# ---------------------------------------------------------------------------
+
+
+def sharded_serving_phase(dev: torch.device, smi: str, models: dict, cams: dict, mesh) -> dict:
+    """The serving paths with ``mesh=`` (a one-rank NCCL mesh over the card:
+    each fused batch through the fpca kernel, then a real
+    ``all_gather_into_tensor`` over the data group) against ``mesh=None``:
+    the fleet of ``tests/test_fleet.py`` (SHARD_FLEET_CAMERAS 20x20
+    cameras, SHARD_FLEET_TICKS ticks), the cameras of ``server_phase`` on a
+    ``StreamServer`` (SHARD_SERVER_TICKS ticks) and the pipeline's request
+    mix.  Counts, block masks, kept windows, logits and allocations must be
+    equal bit for bit, ``data_parallelism`` 1 on every handle, and the fpca
+    launches the same in number and design."""
+    from repro_torch.core.mapping import FPCASpec
+    from repro_torch.serving import FleetConfig, FleetController, FPCAPipeline, StreamServer, assert_reconciled
+
+    out: dict = {"launches": {}}
+    step = Laps()
+
+    def launches_of(fn):
+        _reset_fpca_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, fpca_conv_cuda.launches, dict(fpca_conv_cuda.designs)
+
+    # the fleet of tests/test_fleet.py on the card
+    spec = FPCASpec(image_h=20, image_w=20, out_channels=4, kernel=5, stride=5)
+    kern = (np.random.default_rng(0).normal(size=(4, 5, 5, 3)) * 0.2).astype(np.float32)
+    fleet_cams = {f"cam{i}": SyntheticMovingObject((20, 20), seed=10 + i, radius=4.0)
+                  for i in range(SHARD_FLEET_CAMERAS)}
+
+    def small_fleet(mesh_arg):
+        pipe = FPCAPipeline(models[spec.n_active_pixels], device=dev, mesh=mesh_arg)
+        pipe.register("cam", spec, kern)
+        server = StreamServer(pipe, gate=fpca.DeltaGateConfig(threshold=0.05, hysteresis=1, keyframe_interval=8),
+                              controller=fpca.GateControllerConfig(target=0.5))
+        fc = FleetController(server, FleetConfig(budget=0.6, floor=0.1, rebalance_ticks=4))
+        for sid in fleet_cams:
+            fc.add_stream(sid, "cam")
+        res = [r for rs in fc.run({sid: c.frame_at(t) for sid, c in fleet_cams.items()}
+                                  for t in range(SHARD_FLEET_TICKS)) for r in rs]
+        return pipe, server, fc, res
+
+    runs = {}
+    for label, m in (("mesh", mesh), ("no mesh", None)):
+        (pipe, server, fc, res), n, designs = launches_of(lambda m=m: small_fleet(m))
+        runs[label] = (pipe, server, fc, res, n, designs)
+    pipe_m, server_m, fc_m, got, n_m, d_m = runs["mesh"]
+    _, _, fc_p, ref, n_p, d_p = runs["no mesh"]
+    _same_results(got, ref, "sharded fleet")
+    check(len(got) == SHARD_FLEET_CAMERAS * SHARD_FLEET_TICKS, f"sharded fleet: {len(got)} results")
+    check(all(fc_m._members[sid].allocation == fc_p._members[sid].allocation for sid in fleet_cams),
+          "sharded fleet: allocations differ from the unsharded fleet's")
+    check(all(h.data_parallelism == 1 for h in pipe_m._handles.values()), "sharded fleet: data_parallelism != 1")
+    check(all(type(sess._prev) is torch.Tensor for sess in server_m.sessions.values()),
+          "sharded fleet: gate state must stay per stream on each rank (a plain tensor, never sharded)")
+    assert_reconciled(pipe_m, server_m)
+    check(n_m == n_p and d_m == d_p and n_m > 0,
+          f"sharded fleet: {n_m} fpca launches {d_m} with the mesh, {n_p} {d_p} without")
+    out["launches"]["sharded fleet (tests/test_fleet.py)"] = n_m
+    print(f"sharded fleet ({SHARD_FLEET_CAMERAS} cameras, {SHARD_FLEET_TICKS} ticks) on a one-rank mesh == "
+          f"unsharded bit for bit (counts, masks, kept windows, allocations); fpca launches {n_m} {d_m} both ways")
+    step("fleet")
+
+    # the server's cameras, and the pipeline's request mix
+    configs = pipeline_configs(dev)
+    frames, reqs = pipeline_mix(dev, configs)
+    ticks = range(SHARD_SERVER_TICKS)
+    served = {}
+    for label, m in (("mesh", mesh), ("no mesh", None)):
+        pipe = make_pipeline(dev, models, configs, mesh=m)
+        server = StreamServer(pipe)
+        attach_cameras(server, server)
+        _run_ticks(server, cams, range(SERVER_WARM))            # warm-up: builds, first calls
+        (res, wall), n, designs = launches_of(lambda server=server: _run_ticks(server, cams, ticks))
+        pipe2 = make_pipeline(dev, models, configs, mesh=m)
+        pipe2.serve(reqs)
+        results, n2, designs2 = launches_of(lambda pipe2=pipe2: pipe2.serve(reqs))
+        check(all(h.data_parallelism == 1 for p_ in (pipe, pipe2) for h in p_._handles.values()),
+              f"{label}: data_parallelism != 1")
+        served[label] = (res, wall, n, designs, results, n2, designs2)
+    res_m, wall_m, n_m, d_m, pres_m, pn_m, pd_m = served["mesh"]
+    res_p, wall_p, n_p, d_p, pres_p, pn_p, pd_p = served["no mesh"]
+    _same_results(res_m, res_p, "sharded server")
+    check(n_m == n_p and d_m == d_p, f"sharded server: fpca launches {n_m} {d_m} against {n_p} {d_p}")
+    for i, (a, b) in enumerate(zip(pres_m, pres_p)):
+        check(torch.equal(_host_out(a), _host_out(b)), f"sharded pipeline request {i} differs from unsharded")
+    check(pn_m == pn_p and pd_m == pd_p, f"sharded pipeline: fpca launches {pn_m} {pd_m} against {pn_p} {pd_p}")
+    out["launches"]["sharded server"] = n_m
+    out["launches"]["sharded pipeline serve"] = pn_m
+    out["server_ms_per_tick"] = {"mesh": wall_m / len(ticks), "no mesh": wall_p / len(ticks)}
+    print(f"sharded server ({len(cams)} cameras, {len(ticks)} ticks) and pipeline ({PIPE_REQUESTS} requests) on a "
+          f"one-rank mesh == unsharded bit for bit; fpca launches {n_m} {d_m} / {pn_m} {pd_m} both ways; "
+          f"server {wall_m / len(ticks):.2f} ms a tick with the mesh, {wall_p / len(ticks):.2f} without "
+          f"(host clock, {smi})")
+    out["seconds_by_step"] = step.report("sharded serving")
+    return out
+
+
+def fpca_cell_phase(dev: torch.device, smi: str, bucket_model, mesh) -> dict:
+    """The production FPCA cell (``launch/fpca_cell.py``) at full size on
+    the card's one-rank mesh: every window of the batch through one launch
+    of the fpca kernel.  Per shape: the step's host-clock ms (median of 10
+    after a warm-up), device ms and busy share (torch.profiler), frames/s;
+    the kernel's ms at that M beside ``fpca_bound_ms``; the step's counts
+    against the plain basis version on the first and the last
+    FPCA_CELL_CHECK_ROWS windows (the fpca limit); the step's model FLOPs,
+    bytes and roofline terms against the H100 constants."""
+    from repro_torch.launch.fpca_cell import FPCA_SHAPES, build_fpca_cell
+    from repro_torch.launch.roofline import HW, roofline_terms
+
+    out: dict = {"launches": {}}
+    for name, shape in FPCA_SHAPES.items():
+        t0 = time.perf_counter()
+        step_fn, args, info = build_fpca_cell(shape, mesh, bucket_model, seed=SEED)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        spec = info.spec
+        _reset_fpca_counts()
+        counts = step_fn(*args)
+        torch.cuda.synchronize()
+        launched, designs = fpca_conv_cuda.launches, dict(fpca_conv_cuda.designs)
+        M = shape.global_batch * info.windows
+        check(launched == 1 and designs["wgmma"] == 1,
+              f"fpca cell {name}: {launched} fpca launches {designs}, expected one on the tensor-core design")
+        check(tuple(counts.shape) == (shape.global_batch,) + output_dims(spec) + (spec.out_channels,),
+              f"fpca cell {name}: counts {tuple(counts.shape)}")
+        check(bool(torch.isfinite(counts).all()) and float(counts.min()) >= 0
+              and float(counts.max()) <= ADCConfig().levels - 1, f"fpca cell {name}: counts out of range")
+        # the kernel's counts at the head and the tail of the launch against the plain version
+        w_pos, w_neg = encode_weights(args[1], spec, WeightEncoding())
+        tables = conv_tables(bucket_model, ADCConfig(), spec.n_active_pixels, dev)
+        planes = weight_planes(w_pos.T, w_neg.T, tables)
+        flat = counts.reshape(M, spec.out_channels)
+        errs = {}
+        for part, rows in (("head", slice(0, FPCA_CELL_CHECK_ROWS)), ("tail", slice(M - FPCA_CELL_CHECK_ROWS, M))):
+            frames_of = range(rows.start // info.windows, -(-rows.stop // info.windows))
+            p = extract_windows(args[0][frames_of.start:frames_of.stop], spec).reshape(-1, spec.n_active_pixels)
+            off = rows.start - frames_of.start * info.windows
+            want = fpca_conv_basis(p[off:off + FPCA_CELL_CHECK_ROWS].contiguous(), planes, tables, args[2])
+            errs[part] = count_diff(flat[rows], want)
+            check(errs[part][0] <= COUNT_TOL and errs[part][1] < FLIP_TOL,
+                  f"fpca cell {name}: the kernel's {part} rows disagree with the plain version {errs[part]}")
+        step_ms = host_ms(lambda: step_fn(*args), runs=10, warmup=1)
+        device_ms, rows_ = profile_device(lambda: step_fn(*args), runs=3)
+        patches = extract_windows(args[0], spec).reshape(M, spec.n_active_pixels)
+        kernel_ms = time_cuda(lambda: fpca_conv_cuda(patches, planes, tables, args[2]), iters=10)
+        del patches
+        T, NB = planes["aw"].shape[1], bucket_model.n_buckets
+        bound, parts, bytes_moved, dot_flops = fpca_bound_ms(M, spec.n_active_pixels, spec.out_channels, T, NB)
+        frames_bytes = args[0].numel() * args[0].element_size()
+        # the step moves the frames (read once), the patch matrix (written
+        # once, read once by the kernel) and the counts (written once)
+        step_bytes = frames_bytes + 2 * 4 * M * spec.n_active_pixels + 4 * M * spec.out_channels
+        terms = roofline_terms(info.model_flops(), step_bytes, 0.0)
+        hw = HW()
+        out[name] = {
+            "M": M, "frames": shape.global_batch, "sensor": shape.sensor, "build_s": t_build,
+            "step_ms": step_ms, "device_ms": device_ms, "busy": device_ms / step_ms,
+            "frames_per_s": shape.global_batch / step_ms * 1e3,
+            "kernel_ms": kernel_ms, "bound_ms": bound, "bound_parts_ms": parts,
+            "model_flops": info.model_flops(), "step_bytes": step_bytes, "roofline_terms": terms,
+            "check_rows": FPCA_CELL_CHECK_ROWS,
+            "head": {"max_abs_err": errs["head"][0], "flip_share": errs["head"][1]},
+            "tail": {"max_abs_err": errs["tail"][0], "flip_share": errs["tail"][1]},
+        }
+        out["launches"][f"fpca cell {name}"] = launched
+        print(f"fpca cell {name} ({shape.global_batch} frames of {shape.sensor}x{shape.sensor}x3, M = {M:,} windows, "
+              f"one launch) on {smi}: step {step_ms:.2f} ms (host clock, median of 10), device {device_ms:.2f} ms, "
+              f"busy {device_ms / step_ms:.1%}, {shape.global_batch / step_ms * 1e3:.0f} frames/s; kernel "
+              f"{kernel_ms:.3f} ms against its bound {bound:.3f} ms ({100 * bound / kernel_ms:.1f}%, parts "
+              + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+              + f"); model FLOPs {info.model_flops():.4g}, step bytes {step_bytes / 1e9:.3f} GB, roofline "
+              f"compute {terms['compute_s'] * 1e3:.4f} ms / memory {terms['memory_s'] * 1e3:.4f} ms at "
+              f"{hw.peak_flops / 1e12:.0f} TFLOP/s and {hw.hbm_bw / 1e12:.2f} TB/s; kernel vs plain on the "
+              f"first {FPCA_CELL_CHECK_ROWS:,} rows {errs['head']}, the last {errs['tail']} (max|Δcount|, flip "
+              f"share; limit {COUNT_TOL}, {FLIP_TOL})")
+        for row in rows_:
+            print(f"  {row}")
+        del step_fn, args, counts, flat, planes
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def compression_phase(dev: torch.device, smi: str, grads: dict, mesh) -> dict:
+    """int8 gradient compression with error feedback over a full-width
+    qwen3-1.7b gradient tree: ``compress_decompress`` timed (host clock,
+    median of 5), each leaf's residual at most half its int8 step (plus one
+    f32 ulp of the leaf's max|value|: the division and the product round),
+    and ``sync_grads_compressed`` on the one-rank mesh returning the round
+    trip unchanged."""
+    from repro_torch.models.quant import quantize_leaf_symmetric
+    from repro_torch.training.compression import compress_decompress, init_error_state, sync_grads_compressed
+
+    error = init_error_state(grads)
+    g_hat, new_e, metrics = compress_decompress(grads, error)
+    worst = 0.0
+    for g, e in zip(tree_leaves(grads), tree_leaves(new_e)):
+        _, scale = quantize_leaf_symmetric(g.float())
+        top = float(g.float().abs().max())
+        slack = float(np.spacing(np.float32(top)))
+        ratio = float(e.abs().max()) / float(scale)
+        worst = max(worst, ratio)
+        check(float(e.abs().max()) <= float(scale) / 2 + slack,
+              f"compression: a leaf's residual {float(e.abs().max())} exceeds half its step {float(scale) / 2}")
+    synced, _, _ = sync_grads_compressed(grads, error, mesh, ("data",))
+    check(all(torch.equal(a, b) for a, b in zip(tree_leaves(synced), tree_leaves(g_hat))),
+          "sync_grads_compressed on a one-rank mesh must return the round trip unchanged")
+    del synced, g_hat, new_e
+    ms = host_ms(lambda: compress_decompress(grads, error), runs=5, warmup=0)
+    n = sum(g.numel() for g in tree_leaves(grads))
+    print(f"int8 gradient compression over qwen3-1.7b's {n:,} gradients on {smi}: {ms:.1f} ms (host clock, median "
+          f"of 5), compression_error_norm {float(metrics['compression_error_norm']):.4e}, worst residual "
+          f"{worst:.4f} of a step (limit 0.5); sync_grads_compressed on the one-rank mesh == the round trip")
+    return {"ms": ms, "params": n, "compression_error_norm": float(metrics["compression_error_norm"]),
+            "worst_residual_steps": worst}
+
+
+def dryrun_phase(smi: str) -> dict:
+    """``python -m repro_torch.launch.dryrun`` as subprocesses on torch's
+    fake process group (nothing on the card): qwen3-1.7b x train_4k on the
+    single-pod mesh and the FPCA cell on both meshes; prints each record's
+    terms and per-rank bytes."""
+    out_dir = ROOT / "artifacts" / "dryrun" / "chip_smoke"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    records = {}
+    for argv in (["--arch", "qwen3-1.7b", "--shape", "train_4k", "--mesh", "single"],
+                 ["--arch", "fpca-frontend", "--mesh", "both"]):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", *argv, "--tag", "chip_smoke",
+                               "--force"], cwd=ROOT, env=env, capture_output=True, text=True,
+                              timeout=DRYRUN_TIMEOUT_S)
+        tail = "\n".join(line for line in proc.stdout.splitlines() if line.startswith(("[", "===", "all")))
+        print(f"dry run {' '.join(argv)}: rc {proc.returncode} in {time.perf_counter() - t0:.1f} s\n{tail}")
+        check(proc.returncode == 0, f"dry run {argv} failed:\n{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    for path in sorted(out_dir.glob("*.json")):
+        rec = json.loads(path.read_text())
+        t = rec["terms"]
+        records[path.stem] = {k: rec[k] for k in ("world", "flops_per_device", "bytes_per_device", "model_flops",
+                                                  "useful_flop_ratio", "roofline_mfu", "per_device_bytes")}
+        records[path.stem]["terms"] = t
+        records[path.stem]["wire_bytes"] = rec["collectives"]["total_wire_bytes"]
+        print(f"  {path.stem}: world {rec['world']}, compute {t['compute_s']:.4g} s, memory {t['memory_s']:.4g} s, "
+              f"collective {t['collective_s']:.4g} s ({t['dominant']}), wire {rec['collectives']['total_wire_bytes']:.4g} B "
+              f"({rec['collectives']['network_wire_bytes']:.4g} across hosts), per-rank bytes "
+              f"{json.dumps(rec['per_device_bytes'])}")
+    return records
 
 
 def load_example(name: str):
@@ -2891,10 +3201,11 @@ def bf16_ulps(top: float, n: int = 2) -> float:
     return n * 2.0 ** (np.floor(np.log2(top)) - 7)
 
 
-def train_phase(dev: torch.device, smi: str) -> tuple[list[dict], dict]:
+def train_phase(dev: torch.device, smi: str, mesh) -> tuple[list[dict], dict]:
     """Train qwen3-1.7b at full width; check and time the backward kernels
     (their ``kernels`` entries) and the forward at the trained shape (the
-    flash entry's ``trained`` numbers)."""
+    flash entry's ``trained`` numbers); run ``compression_phase`` on one
+    microbatch's gradients of the trained weights."""
     # ---- 12. the kernel path against the host's plain path, smoke config ----
     small = reduce_for_smoke(ARCHS[TRAIN_ARCH])
     host = init_model(small, generator=torch.Generator().manual_seed(SEED), device="cpu")
@@ -2974,7 +3285,20 @@ def train_phase(dev: torch.device, smi: str) -> tuple[list[dict], dict]:
           f"median step ({steady_ms:.1f} ms)")
     for row in rows:
         print(f"  {row}")
-    del params, opt_state, metrics, batches, step_fn
+    del opt_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- int8 gradient compression over one microbatch's gradients ---------
+    t0 = time.perf_counter()
+    micro = {k: v[: TRAIN_BATCH // TRAIN_MICRO] for k, v in batches[0].items()}
+    leaves = [p.requires_grad_() for p in tree_leaves(params)]
+    loss, _ = forward_train(params, cfg, micro, remat=TRAIN_REMAT)
+    grads = tree_unflatten(params, list(torch.autograd.grad(loss, leaves)))
+    del loss, leaves
+    compression = compression_phase(dev, smi, grads, mesh)
+    del grads
+    compression["seconds"] = time.perf_counter() - t0
+    del params, metrics, batches, step_fn
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3074,6 +3398,7 @@ def train_phase(dev: torch.device, smi: str) -> tuple[list[dict], dict]:
         "library_ms": sdpa_fwd_ms,
         "tflops_required": fwd_rate[0],
         "tflops_executed": fwd_rate[1],
+        "compression": compression,
     }
 
     def entry(name, kernel_ms, err, line):

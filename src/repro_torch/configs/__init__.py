@@ -20,7 +20,7 @@ from repro_torch.configs import (
     yi_9b,
     zamba2_7b,
 )
-from repro_torch.configs.base import ModelConfig, reduce_for_smoke
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeSpec, reduce_for_smoke, shape_applicable
 
 ARCHS: dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG
@@ -38,4 +38,11 @@ ARCHS: dict[str, ModelConfig] = {
     )
 }
 
-__all__ = ["ARCHS", "ModelConfig", "reduce_for_smoke"]
+__all__ = [
+    "ARCHS",
+    "SHAPES",
+    "ModelConfig",
+    "ShapeSpec",
+    "reduce_for_smoke",
+    "shape_applicable",
+]

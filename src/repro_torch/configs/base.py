@@ -134,6 +134,29 @@ class ModelConfig:
         return total
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                       # 'train' | 'prefill' | 'decode'
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeSpec) -> tuple[bool, str]:
+    """long_500k only for sub-quadratic archs."""
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, "long_500k skipped: pure full-attention arch (see DESIGN.md §4)"
+    return True, ""
+
+
 def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
     """Reduced same-family config: a forward pass on the host in seconds."""
     changes: dict = dict(

@@ -111,19 +111,22 @@ def extract_windows(image: torch.Tensor, spec: FPCASpec) -> torch.Tensor:
             f"expected (H, W, {spec.in_channels}) or (B, H, W, {spec.in_channels}) "
             f"image, got {tuple(image.shape)}"
         )
-    img = image.float()
     b = spec.binning
+    n, s, p = spec.max_kernel, spec.stride, spec.padding
+    # binning averages in f32; otherwise frames stay in their dtype until
+    # the patch matrix (one pass from bf16 frames, no f32 copy of them)
+    img = image.float() if b > 1 or not (s == n and p == 0) else image
     if b > 1:
         B, h, w, c = img.shape
         img = img[:, : h // b * b, : w // b * b].reshape(B, h // b, b, w // b, b, c).mean((2, 4))
-    n, s, p = spec.max_kernel, spec.stride, spec.padding
     if s == n and p == 0:
         # non-overlapping windows (the paper's energy-optimal stride): a pure
         # reshape, no gather
         B, h, w, c = img.shape
         h_o, w_o = h // n, w // n
         tiles = img[:, : h_o * n, : w_o * n].reshape(B, h_o, n, w_o, n, c)
-        out = tiles.permute(0, 1, 3, 5, 2, 4).reshape(B, h_o, w_o, c * n * n)
+        out = torch.empty((B, h_o, w_o, c * n * n), dtype=torch.float32, device=img.device)
+        out.view(B, h_o, w_o, c, n, n).copy_(tiles.permute(0, 1, 3, 5, 2, 4))
     else:
         B = img.shape[0]
         cols = F.unfold(img.permute(0, 3, 1, 2), kernel_size=n, stride=s, padding=p)

@@ -17,6 +17,13 @@ row buckets, batch padding and the executed-window accounting
 (:attr:`CompiledFrontend.stats`).  Weights enter every executable as call
 arguments while the cache key is the program's signature, so reprogramming
 never builds an executable.
+
+With ``mesh=`` (a :class:`~torch.distributed.device_mesh.DeviceMesh`, e.g.
+:func:`repro_torch.launch.mesh.make_host_mesh`) batches are data-parallel:
+the padded batch splits over the mesh's data axes, every rank runs its
+contiguous rows through the same executable and the results are
+all-gathered, so every rank returns the whole batch, equal bit for bit to
+an unmeshed call (a gather copies, it sums nothing).
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from typing import Any, Callable, Iterable, Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import gating
 from repro_torch.core.curvefit import BucketCurvefitModel, fit_bucket_model
@@ -221,6 +229,7 @@ class CompiledFrontend:
         backend: Backend,
         model: BucketCurvefitModel,
         device: torch.device,
+        mesh: Any | None = None,
         cache: ExecutableCache | None = None,
         cache_capacity: int = 8,
         bucket_patience: int = 1,
@@ -228,10 +237,19 @@ class CompiledFrontend:
     ):
         if bucket_patience < 1:
             raise ValueError("bucket_patience must be >= 1")
+        if mesh is not None and mesh.device_type != device.type:
+            raise ValueError(f"mesh is on {mesh.device_type!r} devices, the handle on {device}")
         self.program = program
         self.backend = backend
         self.model = model
         self.device = device
+        self.mesh = mesh
+        # the data axes' process group and this rank's place in it, read once
+        self._data_group = None
+        if mesh is not None:
+            from repro_torch.launch.mesh import data_group
+
+            self._data_group = data_group(mesh)
         self.bucket_patience = bucket_patience
         self._cache = cache if cache is not None else ExecutableCache(cache_capacity)
         self._sig = program.signature()
@@ -381,7 +399,7 @@ class CompiledFrontend:
             window_keep = _host_bool(window_keep)
             if window_keep.shape != (b, h_o, w_o):
                 raise ValueError(f"window_keep shape {window_keep.shape} != {(b, h_o, w_o)}")
-        padded = _round_up_pow2(b)
+        padded = self._padded_batch(b)
         if padded > b:
             images = torch.cat([images, images.new_zeros((padded - b,) + tuple(images.shape[1:]))])
             if window_keep is not None:
@@ -391,7 +409,7 @@ class CompiledFrontend:
         if window_keep is None:
             self.stats.runs += 1
             self.stats.windows_executed += m_total
-            return executable_for(None)(images, kernel, bn_offset, *extra)[:b]
+            return self._run_sharded(executable_for(None), images, (kernel, bn_offset, *extra))[:b]
         n_keep = int(np.count_nonzero(window_keep))
         if n_keep == 0:
             # all-skipped: the counts are exact zeros by contract, so nothing
@@ -407,7 +425,7 @@ class CompiledFrontend:
         m_bucket = self._bucket_for(n_keep, m_total)
         self.stats.windows_executed += m_bucket
         mask = torch.as_tensor(window_keep, device=self.device)
-        return executable_for(m_bucket)(images, kernel, bn_offset, *extra, mask)[:b]
+        return self._run_sharded(executable_for(m_bucket), images, (kernel, bn_offset, *extra), mask)[:b]
 
     # -- streaming -------------------------------------------------------------
     def stream(
@@ -710,7 +728,50 @@ class CompiledFrontend:
 
         return self._cache.get(key, build)
 
+    @property
+    def data_parallelism(self) -> int:
+        """Ranks the fused batch shards over (1 = unsharded single device).
+
+        The batch-carrying extent of the mesh — what :meth:`_padded_batch`
+        rounds the launch up to.  Gate state never shards: every rank keeps
+        its own per stream."""
+        if self.mesh is None:
+            return 1
+        from repro_torch.launch.mesh import data_extent
+
+        return data_extent(self.mesh)
+
     # -- internals -----------------------------------------------------------
+    def _padded_batch(self, b: int) -> int:
+        """The pow-2 bucket of ``b``, rounded up to the data extent."""
+        padded = _round_up_pow2(b)
+        n_data = self.data_parallelism
+        return -(-padded // n_data) * n_data
+
+    def _shard_batch(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's contiguous rows of a padded batch (all of it without
+        a mesh)."""
+        if self.mesh is None:
+            return x
+        _, rank = self._data_group
+        per = x.shape[0] // self.data_parallelism
+        return x[rank * per : (rank + 1) * per]
+
+    def _run_sharded(self, run: Callable, images: torch.Tensor, args: tuple,
+                     mask: torch.Tensor | None = None) -> torch.Tensor:
+        """``run`` on this rank's rows of the padded batch, the results
+        all-gathered over the mesh's data group (in rank order: the whole
+        batch).  The gather runs even on a one-rank mesh, as a many-rank
+        job runs it."""
+        if self.mesh is None:
+            return run(images, *args) if mask is None else run(images, *args, mask)
+        group, _ = self._data_group
+        local = self._shard_batch(images)
+        out = run(local, *args) if mask is None else run(local, *args, self._shard_batch(mask))
+        full = out.new_empty((images.shape[0],) + tuple(out.shape[1:]))
+        dist.all_gather_into_tensor(full, out.contiguous(), group=group)
+        return full
+
     def _require_weights(self) -> torch.Tensor:
         if self._kernel is None:
             raise RuntimeError(
@@ -1058,6 +1119,7 @@ def compile(  # noqa: A001  (torch.compile-style public name)
     *,
     backend: str | Backend | None = None,
     device: str | torch.device | None = None,
+    mesh: Any | None = None,
     weights: Any | None = None,
     bn_offset: Any | None = None,
     head_params: Any | None = None,
@@ -1076,6 +1138,10 @@ def compile(  # noqa: A001  (torch.compile-style public name)
         card and ``"basis"`` on the host.
       device: where the handle runs; the CUDA card by default (raises when
         there is none — pass ``device="cpu"`` to run on the host).
+      mesh: optional :class:`~torch.distributed.device_mesh.DeviceMesh` on
+        ``device``'s type — batches shard over its data axes and batch
+        padding rounds up to the data-axis extent (every rank calls the
+        handle with the same batch and gets the whole result back).
       weights / bn_offset / head_params: program the weights immediately.
       model: fitted bucket model; fitted on ``device`` from
         ``program.circuit`` when omitted.
@@ -1101,7 +1167,7 @@ def compile(  # noqa: A001  (torch.compile-style public name)
         if model is None:
             model = fit_bucket_model(frontend.circuit, n_pixels=frontend.spec.n_active_pixels, device=dev)
         common = dict(
-            backend=be, model=model, device=dev, cache=cache,
+            backend=be, model=model, device=dev, mesh=mesh, cache=cache,
             cache_capacity=cache_capacity, bucket_patience=bucket_patience,
             stats_parent=stats_parent,
         )

@@ -80,7 +80,7 @@ def flash_attention_dq_cuda(
     kernel on the current stream, or raises.  Every launch adds one to
     ``flash_attention_dq_cuda.launches`` and to its design's count in
     ``flash_attention_dq_cuda.designs``."""
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):   # meta: shapes only, no compute exists there
         return _plain(q, k, v, do, lse, delta, causal, window)[0]
     _check_bwd(q, k, v, do, lse, delta, window)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -103,7 +103,7 @@ def flash_attention_dkdv_cuda(
     :func:`flash_attention_dq_cuda`).  Every launch adds one to
     ``flash_attention_dkdv_cuda.launches`` and to its design's count in
     ``flash_attention_dkdv_cuda.designs``."""
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):   # meta: shapes only, no compute exists there
         return _plain(q, k, v, do, lse, delta, causal, window)[1:]
     _check_bwd(q, k, v, do, lse, delta, window)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
@@ -144,7 +144,7 @@ def flash_attention_bwd_cuda(
     ``(B,Sk,KV,D)``, lse ``(B,H,Sq)`` f32 (the forward kernel's).  A dO
     whose head dim is not unit-stride is made contiguous first.  A CPU
     ``q`` takes :func:`flash_attention_bwd_ref`."""
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):   # meta: shapes only, no compute exists there
         return flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal, window=window)
     if do.stride(3) != 1:
         do = do.contiguous()

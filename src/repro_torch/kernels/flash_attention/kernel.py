@@ -104,7 +104,7 @@ def flash_attention_cuda(
     ``flash_attention_cuda.launches`` and to its design's count in
     ``flash_attention_cuda.designs`` (:func:`design`).
     """
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):   # meta: shapes only, no compute exists there
         return flash_attention_ref(q, k, v, causal=causal, window=window, return_lse=return_lse)
     _check(q, k, v, window)
     B, Sq, H, D = q.shape

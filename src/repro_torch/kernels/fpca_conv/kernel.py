@@ -331,7 +331,7 @@ def fpca_conv_cuda(
     ``fpca_conv_cuda.designs`` (:func:`design`); a replay of a captured
     launch counts nothing.
     """
-    if patches.device.type == "cpu":
+    if patches.device.type in ("cpu", "meta"):   # meta: shapes only, no compute exists there
         return fpca_conv_basis(patches, planes, tables, bn_offset, row_valid=row_valid, n_rows=n_rows)
     dev = patches.device
     M, N = patches.shape

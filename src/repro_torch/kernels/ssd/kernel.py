@@ -95,8 +95,11 @@ def ssd_intra_chunk_cuda(
     copy).  Returns ``(y_intra (b,nc,q,h,p), states (b,nc,h,p,n),
     chunk_decay (b,nc,h))``.  A CPU ``xbar`` takes
     :func:`ssd_intra_chunk_ref`; a CUDA one launches the kernel on the
-    current stream, or raises (also when grad mode is on and an input
-    requires grad: the gradient is :class:`~repro_torch.kernels.ssd.bwd.SSDIntraChunk`'s).  Every launch adds one to
+    current stream, or raises; a meta one (a dry run) takes the plain
+    version after the same gradient guard (also when grad mode is on and an input
+    requires grad: the gradient is :class:`~repro_torch.kernels.ssd.bwd.SSDIntraChunk`'s); a
+    meta one (a dry run) meets the same guard, then takes the plain
+    version.  Every launch adds one to
     ``ssd_intra_chunk_cuda.launches`` and to its design's count in
     ``ssd_intra_chunk_cuda.designs`` (:func:`design`).
     """
@@ -109,6 +112,8 @@ def ssd_intra_chunk_cuda(
             "SSDIntraChunk.apply (kernels/ssd/bwd.py: this kernel's forward and a closed-form "
             "backward), or call it under torch.no_grad()"
         )
+    if xbar.device.type == "meta":   # shapes only (a dry run): no compute exists there
+        return ssd_intra_chunk_ref(xbar, Bh, Ch, cum)
     _check(xbar, Bh, Ch, cum)
     b, nc, q, h, p = xbar.shape
     n = Bh.shape[-1]

@@ -29,7 +29,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.models.layers import init_dense, init_rms_norm, rms_norm, rope
+from repro_torch.models.layers import init_dense, init_rms_norm, is_dtensor, rms_norm, rope
 
 __all__ = [
     "init_attention",
@@ -234,6 +234,11 @@ def flash_attention(
     forward launch without the LSE, as serving runs it."""
     from repro_torch.kernels.flash_attention import kernel
 
+    if is_dtensor(q):
+        # each rank attends over its batch rows and heads, whole sequences
+        from repro_torch.compat import run_on_shards
+
+        return run_on_shards(flash_attention, (q, k, v), (0, 2), causal=causal, window=window)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, window)
     return kernel.flash_attention_cuda(q, k, v, causal=causal, window=window)

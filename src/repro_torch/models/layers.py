@@ -36,6 +36,9 @@ __all__ = [
     "mlp",
     "gelu",
     "require_ieee_f32",
+    "maybe_shard",
+    "shard_batch",
+    "is_dtensor",
     "init_embedding",
     "embed",
     "unembed",
@@ -216,6 +219,37 @@ def require_ieee_f32() -> None:
                            f"{torch.get_float32_matmul_precision()!r}, not 'highest'")
 
 
+def maybe_shard(x: torch.Tensor, *spec) -> torch.Tensor:
+    """Redistribute a DTensor to ``spec`` (a ``PartitionSpec``-shaped tuple
+    of axis names) under an ambient mesh (:func:`repro_torch.compat.set_mesh`);
+    the identity without one, or on a plain tensor (every test and every
+    one-card run).  Axis names missing from the mesh are dropped, so the
+    same model code runs under 2-axis and 3-axis meshes."""
+    from repro_torch import compat
+
+    mesh = compat.get_abstract_mesh()
+    if mesh is None or not is_dtensor(x):
+        return x
+    names = set(mesh.mesh_dim_names)
+
+    def clean(entry):
+        if entry is None:
+            return None
+        if isinstance(entry, str):
+            return entry if entry in names else None
+        sub = tuple(a for a in entry if a in names)
+        return sub if sub else None
+
+    spec = tuple(clean(s) for s in spec) + (None,) * (x.ndim - len(spec))
+    return x.redistribute(mesh, compat.layout_for(mesh, spec).placements)
+
+
+def shard_batch(x: torch.Tensor) -> torch.Tensor:
+    """Pin the leading batch axis to the data axes and replicate the rest.
+    The identity without an ambient mesh."""
+    return maybe_shard(x, ("pod", "data"), *([None] * (x.ndim - 1)))
+
+
 def init_embedding(
     vocab: int,
     d: int,
@@ -228,12 +262,25 @@ def init_embedding(
 
 
 def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"][tokens]
+    table = params["table"]
+    if is_dtensor(table):
+        # DTensor shards F.embedding and its backward; the index form's
+        # backward (index_put) has no strategy on every torch it runs on
+        return F.embedding(tokens, table)
+    return table[tokens]
+
+
+def is_dtensor(x: torch.Tensor) -> bool:
+    """Whether ``x`` is a DTensor (without importing DTensor for plain ones)."""
+    return type(x) is not torch.Tensor and hasattr(x, "device_mesh")
 
 
 def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """Logits in f32."""
-    return (x @ params["table"].T.to(x.dtype)).float()
+    """Logits in f32.  Under a mesh the table (vocab-replicated, d FSDP'd)
+    is resharded vocab-over-model first, so the logits are born
+    vocab-sharded."""
+    table = maybe_shard(params["table"], "model", None)
+    return (x @ table.T.to(x.dtype)).float()
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4) -> torch.Tensor:
@@ -256,9 +303,11 @@ def cross_entropy_loss(
     The gold logit is gathered (the reference sums a one-hot product, which
     is the same value; a ``(..., V)`` one-hot would not fit at V = 151936)."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
-    nll = logz - gold
+    logz = torch.logsumexp(logits, dim=-1, keepdim=True)
+    gold = logits.gather(-1, labels.long()[..., None])
+    # the trailing axis goes after the difference: over vocab-sharded
+    # DTensor logits the gather is a masked partial sum of that shape
+    nll = (logz - gold)[..., 0]
     if mask is not None:
         mask = mask.float()
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

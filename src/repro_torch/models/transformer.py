@@ -45,7 +45,7 @@ for bit.
 from __future__ import annotations
 
 import functools
-from typing import Any
+from typing import Any, Callable
 
 import torch
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
@@ -63,8 +63,10 @@ from repro_torch.models.layers import (
     init_mlp,
     init_rms_norm,
     init_swiglu,
+    maybe_shard,
     mlp,
     rms_norm,
+    shard_batch,
     swiglu,
     torch_dtype,
     unembed,
@@ -231,6 +233,7 @@ def _attn_block_seq(
     ``cross_kv``) a non-causal cross-attention follows the self-attention:
     no RoPE, no qk-norm, Sq != Sk.  Returns (x, moe aux or None, the self
     K/V for the cache)."""
+    x = shard_batch(x)
     h = rms_norm(p["ln1"], x, cfg.norm_eps)
     q, k, v = _project_qkv(p["attn"], h, positions, cfg)
     B, S = x.shape[:2]
@@ -277,6 +280,7 @@ def _attn_block_decode(
 
 
 def _mamba_layer(p_l: dict, h: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+    h = shard_batch(h)
     y, caches = mamba2_block(p_l["block"], rms_norm(p_l["ln"], h, cfg.norm_eps), cfg)
     return h + y, caches
 
@@ -301,7 +305,10 @@ def _embed_inputs(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def _unembed(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    return unembed(params["embed"] if cfg.tie_embeddings else params["unembed"], x)
+    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    if not cfg.logits_vocab_shard:   # no vocab reshard of the table under a mesh
+        return (x @ table["table"].T.to(x.dtype)).float()
+    return unembed(table, x)
 
 
 # ---------------------------------------------------------------------------
@@ -429,7 +436,8 @@ def _encdec_train(params: dict, cfg: ModelConfig, batch: dict, remat: str) -> tu
     x = embed(params["embed"], batch["tokens"]).to(_dt(cfg))
     x, _ = _attn_stack(params["dec_blocks"], cfg.n_layers, cfg, x, remat, enc_out=enc)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
-    loss = cross_entropy_loss(_unembed(params, cfg, x), batch["labels"], batch.get("loss_mask"))
+    logits = maybe_shard(_unembed(params, cfg, x), ("pod", "data"), None, "model")
+    loss = cross_entropy_loss(logits, batch["labels"], batch.get("loss_mask"))
     return loss, {"ce_loss": loss}
 
 
@@ -453,7 +461,8 @@ def forward_train(
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     if cfg.family == "vlm":   # only text positions carry labels
         x = x[:, cfg.frontend_tokens :, :]
-    loss = cross_entropy_loss(_unembed(params, cfg, x), batch["labels"], batch.get("loss_mask"))
+    logits = maybe_shard(_unembed(params, cfg, x), ("pod", "data"), None, "model")
+    loss = cross_entropy_loss(logits, batch["labels"], batch.get("loss_mask"))
     n_layers = max(cfg.n_layers, 1)
     zero = torch.zeros((), dtype=torch.float32, device=loss.device)
     metrics = {"ce_loss": loss}
@@ -525,6 +534,7 @@ def forward_prefill(
     *,
     frontend_embeds: torch.Tensor | None = None,
     max_len: int | None = None,
+    place_cache: Callable[[dict], dict] | None = None,
 ) -> tuple[torch.Tensor, dict]:
     """Process a full prompt; returns (last-position logits (B, V) f32, cache).
 
@@ -533,7 +543,13 @@ def forward_prefill(
     positions; encdec frame embeddings (B, S_src, frontend_dim): the
     encoder runs once and each decoder layer's cross K/V lands in the
     cache's ``"cross"``.  Runs without autograd (no graph, even for params
-    that require grad)."""
+    that require grad).
+
+    ``place_cache`` lays out the fresh :func:`init_cache` before prefill
+    fills it (a meshed dry run places it as DTensors,
+    :func:`repro_torch.launch.cells.build_cell`); the reference leaves that
+    to GSPMD's propagation."""
+    place = place_cache or (lambda c: c)
     if cfg.family == "encdec":
         if frontend_embeds is None:
             raise ValueError("encdec family needs frontend_embeds (frame stub)")
@@ -542,12 +558,12 @@ def forward_prefill(
         cross = {"k": torch.stack([k for k, _ in kv]), "v": torch.stack([v for _, v in kv])}
         del kv, enc
         x = embed(params["embed"], tokens).to(_dt(cfg))
-        cache = init_cache(cfg, x.shape[0], max_len or x.shape[1], device=x.device)
+        cache = place(init_cache(cfg, x.shape[0], max_len or x.shape[1], device=x.device))
         cache["cross"] = cross
         x, _ = _attn_stack(params["dec_blocks"], cfg.n_layers, cfg, x, cross=cross, cache=cache["layers"])
     else:
         x = _embed_inputs(params, cfg, tokens, frontend_embeds)
-        cache = init_cache(cfg, x.shape[0], max_len or x.shape[1], device=x.device)
+        cache = place(init_cache(cfg, x.shape[0], max_len or x.shape[1], device=x.device))
         x, _ = _decoder(params, cfg, x, cache=cache)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     return _unembed(params, cfg, x[:, -1:, :])[:, 0, :], cache

@@ -35,7 +35,12 @@ up:
   as an arbitration table when given the fleet.
 
 Every fused fleet batch is one launch of the fpca_conv kernel on the card;
-gate and arbitration state stay on the host.
+gate and arbitration state stay on the host.  Multi-device execution
+composes underneath, not here: build the pipeline with
+``FPCAPipeline(..., mesh=make_host_mesh(data=N))`` on every rank and each
+fused fleet batch shards over the mesh's data axes
+(:attr:`repro_torch.fpca.CompiledFrontend.data_parallelism`), while every
+rank keeps its own copy of the gate and arbitration state.
 """
 
 from __future__ import annotations

@@ -33,8 +33,10 @@ Entry points: :meth:`FPCAPipeline.serve` (request mix) and
 :meth:`FPCAPipeline.run_config_batch`, the non-blocking call the streaming
 server (:mod:`repro_torch.serving.streaming`) dispatches through.
 :meth:`FPCAPipeline.submit` is a deprecation shim forwarding to ``serve``.
-Data-parallel sharding over a device mesh (the reference's ``mesh=``) is
-not part of the port.
+With ``mesh=`` every handle serves data-parallel over the mesh's data axes
+(:class:`repro_torch.fpca.CompiledFrontend`): every rank runs the same
+scheduling and gate work on the host and launches the kernel on its rows
+of each fused batch, and the counts are all-gathered.
 """
 
 from __future__ import annotations
@@ -188,6 +190,9 @@ class FPCAPipeline:
         on the card, ``"basis"`` on the host.
       device: where every handle runs; the CUDA card unless the caller
         passes another (``device="cpu"`` on a host without one).
+      mesh: optional :class:`~torch.distributed.device_mesh.DeviceMesh` —
+        every handle's batches shard over its data axes (see
+        :func:`repro_torch.fpca.compile`).
       cache_capacity: bound on simultaneously-held executables, shared
         across ALL registered configurations.
       cross_config_batching: merge request groups whose configurations share
@@ -204,11 +209,13 @@ class FPCAPipeline:
         enc: WeightEncoding | None = None,
         backend: str | None = None,
         device: str | torch.device | None = None,
+        mesh: Any | None = None,
         cache_capacity: int = 8,
         cross_config_batching: bool = False,
         bucket_patience: int = 1,
     ):
         self.device = resolve_device(device)
+        self.mesh = mesh
         self._backend = _fpca.get_backend(
             backend if backend is not None else _fpca.default_backend_name(self.device)
         )
@@ -336,7 +343,7 @@ class FPCAPipeline:
 
     def _handle_kw(self) -> dict:
         return dict(
-            backend=self._backend, device=self.device, cache=self._cache,
+            backend=self._backend, device=self.device, mesh=self.mesh, cache=self._cache,
             bucket_patience=self.bucket_patience, stats_parent=self.stats,
         )
 

@@ -89,6 +89,21 @@ def save_checkpoint(
     return final
 
 
+def _shard_of(arr: np.ndarray, dtype: str, ref: torch.Tensor, layout: Any) -> torch.Tensor:
+    """This rank's shard of a stored global array, as a DTensor of
+    ``layout`` on the mesh's device type."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    shape, offset = compute_local_shape_and_global_offset(tuple(arr.shape), layout.mesh, list(layout.placements))
+    index = tuple(slice(o, o + n) for o, n in zip(offset, shape))
+    dev = "cpu" if layout.mesh.device_type == "cpu" else torch.device(layout.mesh.device_type, torch.cuda.current_device())
+    # np.array copies: the shard must not share the read-only mapping
+    local = _from_numpy(np.array(arr[index]), dtype).to(device=dev, dtype=ref.dtype)
+    return DTensor.from_local(local, layout.mesh, layout.placements, run_check=False,
+                              shape=tuple(arr.shape), stride=torch.empty(arr.shape, device="meta").stride())
+
+
 def latest_step(directory: str | Path) -> int | None:
     directory = Path(directory)
     steps = sorted(
@@ -100,10 +115,17 @@ def latest_step(directory: str | Path) -> int | None:
 
 
 def restore_checkpoint(
-    directory: str | Path, like: Any, *, step: int | None = None
+    directory: str | Path, like: Any, *, step: int | None = None, placements: Any | None = None
 ) -> tuple[Any, dict]:
     """Restore onto the structure of ``like``: each leaf takes the dtype
-    and device of ``like``'s leaf.  Returns (tree, extra | {"step"})."""
+    and device of ``like``'s leaf.  Returns (tree, extra | {"step"}).
+
+    ``placements``: optional tree of
+    :class:`repro_torch.launch.sharding.Layout` for the TARGET mesh — the
+    elastic-resharding path: each leaf comes back as a DTensor of its
+    layout, and each rank reads only its shard of the stored global array
+    (the files are memory-mapped; every leaf is a writable copy of what was
+    read)."""
     directory = Path(directory)
     if step is None:
         step = latest_step(directory)
@@ -117,10 +139,15 @@ def restore_checkpoint(
             f"checkpoint has {manifest['n_leaves']} leaves, target tree has "
             f"{len(leaves_like)} — architecture mismatch"
         )
+    layouts = tree_leaves(placements) if placements is not None else [None] * len(leaves_like)
     out = []
-    for i, (ref, meta) in enumerate(zip(leaves_like, manifest["leaves"])):
-        arr = np.load(path / "arrays" / f"{i}.npy")
+    for i, (ref, meta, lay) in enumerate(zip(leaves_like, manifest["leaves"], layouts)):
+        arr = np.load(path / "arrays" / f"{i}.npy", mmap_mode="r")
         if tuple(arr.shape) != tuple(ref.shape):
             raise ValueError(f"leaf {i}: stored {arr.shape} != target {tuple(ref.shape)}")
-        out.append(_from_numpy(arr, meta["dtype"]).to(device=ref.device, dtype=ref.dtype))
+        if lay is None:
+            # a copy: the optimizer writes the restored leaves in place
+            out.append(_from_numpy(np.array(arr), meta["dtype"]).to(device=ref.device, dtype=ref.dtype))
+        else:
+            out.append(_shard_of(arr, meta["dtype"], ref, lay))
     return tree_unflatten(like, out), manifest["extra"] | {"step": manifest["step"]}

@@ -59,7 +59,9 @@ def make_train_step(
             raise ValueError(f"global batch {b} not divisible by n_micro={n_micro}")
         mb = b // n_micro
         leaves = [p.requires_grad_() for p in tree_leaves(params)]
-        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
+        # zeros_like: a DTensor param (a meshed dry run) gets a DTensor
+        # accumulator of its layout
+        acc = [torch.zeros_like(p, dtype=torch.float32, memory_format=torch.contiguous_format) for p in leaves]
         loss_sum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
         # the reference's metrics: encdec reports ce_loss alone
         keys = ("ce_loss",) if cfg.family == "encdec" else METRIC_KEYS
@@ -71,9 +73,9 @@ def make_train_step(
             for a, g in zip(acc, grads):
                 a.add_(g)
             del grads
-            loss_sum += loss.detach()
+            loss_sum = loss_sum + loss.detach()
             for k in keys:
-                metric_sums[k] += metrics[k].detach()
+                metric_sums[k] = metric_sums[k] + metrics[k].detach()
         torch._foreach_div_(acc, float(n_micro))
         params, opt_state, opt_metrics = adamw_update(tree_unflatten(params, acc), opt_state, params, opt_cfg)
         out = {k: v / n_micro for k, v in metric_sums.items()}

@@ -24,6 +24,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 import repro.fpca as jfpca
 from _port_checks import counts_close, same_error
@@ -286,3 +287,149 @@ def test_assert_reconciled_catches_what_the_reference_catches(sides):
             side.observe.assert_reconciled(pipe, server)
         msgs.append(str(e.value).split("\n")[0])
     assert msgs[1] == msgs[0]
+
+
+# ---------------------------------------------------------------------------
+# data-parallel serving (mesh=): a world-1 gloo mesh in this process, and two
+# gloo ranks in subprocesses
+# ---------------------------------------------------------------------------
+
+
+def _sharded_fleet(side, mesh):
+    pipe = side.P.FPCAPipeline(side.model, backend="basis", device="cpu", mesh=mesh)
+    pipe.register("cam", side.F.FPCASpec(image_h=H, image_w=W, out_channels=4, kernel=5, stride=5), _kernel())
+    server = side.S.StreamServer(pipe, gate=side.S.DeltaGateConfig(**GATE),
+                                 controller=side.S.GateControllerConfig(target=0.5))
+    return pipe, server, side.fleet.FleetController(server, side.fleet.FleetConfig(budget=0.6, floor=0.1,
+                                                                                    rebalance_ticks=4))
+
+
+def test_sharded_fleet_serving_matches_unsharded(sides):
+    """The fused union-masked fleet batch on a one-rank mesh equals the
+    unsharded fleet bit for bit, with gate and arbitration state per
+    stream; and both match the reference's within the counts tolerance."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    ref, port = sides
+    mesh = make_host_mesh(device="cpu")
+    cams = {f"cam{i}": _busy(seed=10 + i) for i in range(3)}
+    runs = {}
+    for label, m in (("mesh", mesh), ("plain", None)):
+        pipe, server, fc = _sharded_fleet(port, m)
+        for sid in cams:
+            fc.add_stream(sid, "cam")
+        out = [r for rs in fc.run({sid: c.frame_at(t) for sid, c in cams.items()} for t in range(10)) for r in rs]
+        runs[label] = (pipe, server, fc, out)
+    pipe_m, server_m, fc_m, got = runs["mesh"]
+    _, _, fc_p, want = runs["plain"]
+    assert len(got) == len(want) == 30
+    for a, b in zip(got, want):
+        assert (a.stream_id, a.frame_idx, a.kept_windows) == (b.stream_id, b.frame_idx, b.kept_windows)
+        np.testing.assert_array_equal(a.counts, b.counts)
+        np.testing.assert_array_equal(a.block_mask, b.block_mask)
+    for sid in cams:
+        assert fc_m._members[sid].allocation == fc_p._members[sid].allocation
+    handles = list(pipe_m._handles.values())
+    assert handles and all(h.data_parallelism == 1 and h.mesh is mesh for h in handles)
+    for session in server_m.sessions.values():
+        assert type(session._prev) is torch.Tensor      # per stream on this rank, never sharded
+    observe.assert_reconciled(pipe_m, server_m)
+    _, _, j_fc = ref.fleet_of(ref.fleet.FleetConfig(budget=0.6, floor=0.1, rebalance_ticks=4))
+    j_cams = {f"cam{i}": JMoving((H, W), seed=10 + i, radius=4.0) for i in range(3)}
+    for sid in j_cams:
+        j_fc.add_stream(sid, "cam")
+    j_out = [r for rs in j_fc.run({sid: c.frame_at(t) for sid, c in j_cams.items()} for t in range(10)) for r in rs]
+    for a, b in zip(got, j_out):
+        assert a.kept_windows == b.kept_windows
+    counts_close(np.stack([r.counts for r in got]), np.stack([r.counts for r in j_out]))
+
+
+def test_data_parallelism_property_unsharded(sides):
+    _, port = sides
+    pipe, server, fc = port.fleet_of(port.fleet.FleetConfig(budget=0.6, floor=0.1))
+    fc.add_stream("s0", "cam")
+    cam = _busy(seed=11)
+    list(fc.serve("s0", (cam.frame_at(t) for t in range(2))))
+    handles = list(pipe._handles.values())
+    assert handles and all(h.data_parallelism == 1 and h.mesh is None for h in handles)
+
+
+_TWO_RANKS = r'''
+import json, sys
+import numpy as np, torch, torch.distributed as dist
+rank, store_path, src = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+sys.path.insert(0, src)
+dist.init_process_group("gloo", store=dist.FileStore(store_path, 2), rank=rank, world_size=2)
+from repro_torch import fpca
+from repro_torch.core.curvefit import fit_bucket_model
+from repro_torch.data.pipeline import SyntheticMovingObject
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.serving import fleet, streaming
+from repro_torch.serving import fpca_pipeline as ppipe
+
+model = fit_bucket_model(device="cpu")
+kern = (np.random.default_rng(0).normal(size=(4, 5, 5, 3)) * 0.2).astype(np.float32)
+spec = fpca.FPCASpec(image_h=20, image_w=20, out_channels=4, kernel=5, stride=5)
+mesh = make_host_mesh(data=2, device="cpu")
+
+def serve(m):
+    pipe = ppipe.FPCAPipeline(model, backend="basis", device="cpu", mesh=m)
+    pipe.register("cam", spec, kern)
+    server = streaming.StreamServer(pipe, gate=streaming.DeltaGateConfig(threshold=0.05, hysteresis=1, keyframe_interval=8),
+                                    controller=streaming.GateControllerConfig(target=0.5))
+    fc = fleet.FleetController(server, fleet.FleetConfig(budget=0.6, floor=0.1, rebalance_ticks=4))
+    cams = {f"cam{i}": SyntheticMovingObject((20, 20), seed=10 + i, radius=4.0) for i in range(3)}
+    for sid in cams:
+        fc.add_stream(sid, "cam")
+    out = [r for rs in fc.run({sid: c.frame_at(t) for sid, c in cams.items()} for t in range(10)) for r in rs]
+    return pipe, fc, out
+
+pipe_m, fc_m, got = serve(mesh)
+_, fc_p, want = serve(None)
+same = all(a.kept_windows == b.kept_windows and np.array_equal(a.counts, b.counts)
+           and np.array_equal(a.block_mask, b.block_mask) for a, b in zip(got, want))
+alloc = all(fc_m._members[s].allocation == fc_p._members[s].allocation for s in fc_m._members)
+# a model handle: an odd batch pads to 4 and splits 2 + 2, a block mask skips regions
+prog = fpca.build_model({"arch": "fpca_cnn"})
+head = prog.init_head(torch.Generator().manual_seed(0), device="cpu")
+kern_m = (np.random.default_rng(3).normal(size=prog.frontend.kernel_shape) * 0.2).astype(np.float32)
+sp = prog.spec
+frames = torch.rand((3, sp.image_h, sp.image_w, 3), generator=torch.Generator().manual_seed(1))
+mask = np.random.default_rng(2).random((3, -(-sp.eff_h // sp.skip_block), -(-sp.eff_w // sp.skip_block))) < 0.5
+logits = []
+for m in (mesh, None):
+    h = fpca.compile(prog, device="cpu", mesh=m, weights=kern_m, head_params=head, model=model, backend="basis")
+    logits.append((h.run(frames), h.run(frames, block_mask=mask), h.data_parallelism))
+model_same = torch.equal(logits[0][0], logits[1][0]) and torch.equal(logits[0][1], logits[1][1])
+print(json.dumps({"rank": rank, "n": len(got), "same": same, "alloc": alloc, "model_same": model_same,
+                  "dp": [h.data_parallelism for h in pipe_m._handles.values()] + [logits[0][2]]}))
+dist.destroy_process_group()
+'''
+
+
+def test_two_gloo_ranks_fleet_equals_unsharded(tmp_path):
+    """A data=2 fleet over two gloo ranks on the host: every rank runs the
+    gate and arbitration, launches its half of each fused batch and gathers
+    the counts; the results equal the unsharded fleet's bit for bit on both
+    ranks (and a model handle's logits, with and without a block mask)."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    store = str(tmp_path / "store")
+    procs = [subprocess.Popen([sys.executable, "-c", _TWO_RANKS, str(r), store, src],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in (0, 1)]
+    outs = []
+    for p in procs:
+        try:
+            out, err = p.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise
+        assert p.returncode == 0, err[-3000:]
+        outs.append(json.loads(out.strip().splitlines()[-1]))
+    for rec in outs:
+        assert rec["n"] == 30 and rec["same"] and rec["alloc"] and rec["model_same"]
+        assert rec["dp"] and all(d == 2 for d in rec["dp"])

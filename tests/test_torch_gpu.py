@@ -48,6 +48,10 @@ Tolerances, each kernel against its plain PyTorch version on the card:
   design rounds one way); server cameras at depth 2 and segments of two
   streams interleaved on one shared handle equal each stream served alone
   through its own handle, bit for bit.
+- the launch tooling: the production FPCA cell at a mid size (4 frames of
+  400x400x3) in one launch within the fpca limit of the plain version;
+  fleet serving on the card's one-rank NCCL mesh equal to ``mesh=None``
+  bit for bit (a gather copies); a bf16 cell lever on the card raises.
 """
 
 from __future__ import annotations
@@ -1127,3 +1131,68 @@ def test_family_smoke_training_on_the_card_matches_the_host_under_every_remat(cu
         assert torch.equal(got[remat][0], loss), remat
         assert all(torch.equal(a, b) for a, b in zip(got[remat][1], grads)), remat
         assert got[remat][2] == 2 * n_fwd, remat
+
+
+# ---------------------------------------------------------------------------
+# the launch tooling on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def card_mesh(cuda):
+    from repro_torch.launch.mesh import make_host_mesh
+
+    return make_host_mesh(device=cuda)
+
+
+def test_fpca_cell_on_the_card_matches_the_plain_version(cuda, model, card_mesh):
+    from repro_torch.core.fpca_sim import WeightEncoding, encode_weights, extract_windows
+    from repro_torch.launch.fpca_cell import FpcaShape, build_fpca_cell
+
+    step, args, info = build_fpca_cell(FpcaShape("mid", 400, 4), card_mesh, model, seed=1)
+    before = fpca_conv_cuda.launches
+    got = step(*args)
+    assert fpca_conv_cuda.launches - before == 1
+    spec = info.spec
+    w_pos, w_neg = encode_weights(args[1], spec, WeightEncoding())
+    tables = conv_tables(model, ADCConfig(), spec.n_active_pixels, cuda)
+    patches = extract_windows(args[0], spec).reshape(-1, spec.n_active_pixels)
+    want = fpca_conv_basis(patches, weight_planes(w_pos.T, w_neg.T, tables), tables, args[2])
+    d = (got.reshape(want.shape) - want).abs()
+    assert got.shape == (4, 80, 80, 8)
+    assert float(d.max()) <= 1.0 and float((d > 0).float().mean()) < 0.05
+
+
+def test_bf16_cell_lever_on_the_card_raises(cuda, model, card_mesh):
+    from repro_torch.launch.fpca_cell import FpcaShape, build_fpca_cell
+
+    with pytest.raises(ValueError, match="takes f32 patches"):
+        build_fpca_cell(FpcaShape("mid", 400, 4), card_mesh, model, compute_dtype=torch.bfloat16)
+
+
+def test_sharded_fleet_on_the_card_equals_unsharded(cuda, model, card_mesh):
+    from repro_torch.data.pipeline import SyntheticMovingObject
+    from repro_torch.serving import FleetConfig, FleetController, FPCAPipeline, StreamServer
+
+    kern = torch.randn((4, 5, 5, 3), generator=torch.Generator().manual_seed(0)) * 0.2
+    spec = fpca.FPCASpec(image_h=20, image_w=20, out_channels=4, kernel=5, stride=5)
+
+    def serve(mesh):
+        pipe = FPCAPipeline(model, device=cuda, mesh=mesh)
+        pipe.register("cam", spec, kern)
+        server = StreamServer(pipe, gate=fpca.DeltaGateConfig(threshold=0.05, hysteresis=1, keyframe_interval=8),
+                              controller=fpca.GateControllerConfig(target=0.5))
+        fc = FleetController(server, FleetConfig(budget=0.6, floor=0.1, rebalance_ticks=4))
+        cams = {f"cam{i}": SyntheticMovingObject((20, 20), seed=10 + i, radius=4.0) for i in range(3)}
+        for sid in cams:
+            fc.add_stream(sid, "cam")
+        out = [r for rs in fc.run({sid: c.frame_at(t) for sid, c in cams.items()} for t in range(10)) for r in rs]
+        return pipe, out
+
+    pipe, got = serve(card_mesh)
+    _, want = serve(None)
+    assert len(got) == len(want) == 30
+    for a, b in zip(got, want):
+        assert a.kept_windows == b.kept_windows
+        assert bool((a.counts == b.counts).all()) and bool((a.block_mask == b.block_mask).all())
+    assert all(h.data_parallelism == 1 for h in pipe._handles.values())

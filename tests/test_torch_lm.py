@@ -202,7 +202,9 @@ def test_other_families_are_not_ported_yet(family):
 def test_ssd_kernel_wrapper_refuses_inputs_that_need_a_gradient():
     """The kernel has no backward, so its outputs would drop the gradients
     of its inputs; a non-CPU tensor (meta here: no card on the host) that
-    requires grad is refused before any launch."""
+    requires grad is refused before any launch.  Past the guard a meta
+    tensor (a dry run: shapes only) takes the plain version and launches
+    nothing."""
     from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_cuda
 
     xbar = torch.empty((1, 2, 16, 4, 8), device="meta", requires_grad=True)
@@ -211,8 +213,10 @@ def test_ssd_kernel_wrapper_refuses_inputs_that_need_a_gradient():
     with pytest.raises(RuntimeError, match="no backward"):
         ssd_intra_chunk_cuda(xbar, bc, bc, cum)
     before = ssd_intra_chunk_cuda.launches
-    with torch.no_grad(), pytest.raises(ValueError):   # past the guard: the checks want a CUDA device
-        ssd_intra_chunk_cuda(xbar, bc, bc, cum)
+    with torch.no_grad():
+        y, states, decay = ssd_intra_chunk_cuda(xbar, bc, bc, cum)
+    assert y.device.type == states.device.type == "meta"
+    assert tuple(states.shape) == (1, 2, 4, 8, 8) and tuple(decay.shape) == (1, 2, 4)
     assert ssd_intra_chunk_cuda.launches == before
 
 

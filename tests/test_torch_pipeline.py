@@ -308,3 +308,52 @@ def test_deprecation_shims_and_device(models, heads):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ppipe.FPCAPipeline(models[1])
+
+
+@pytest.mark.parametrize("cross", [False, True])
+def test_pipeline_data_parallel_mesh(models, heads, cross):
+    """Batches shard over a one-rank host mesh's data axes: the mix served
+    with ``mesh=`` equals the unmeshed pipeline bit for bit (frontends,
+    models, masked requests, merged groups), and the reference's meshed
+    pipeline within the counts tolerance."""
+    from repro.launch.mesh import make_host_mesh as j_host_mesh
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(device="cpu")
+    j, plain = _pair(models, heads, cross_config_batching=cross)
+    meshed = ppipe.FPCAPipeline(models[1], backend="basis", device="cpu", mesh=mesh, cross_config_batching=cross)
+    _register(meshed, fpca, heads)
+    j_meshed = jpipe.FPCAPipeline(models[0], backend="basis", mesh=j_host_mesh(1, 1), cross_config_batching=cross)
+    _register(j_meshed, jfpca, heads, models_too=False)
+    mix = _mix(16, seed=7)
+    got, want = meshed.serve(_requests(ppipe, mix)), plain.serve(_requests(ppipe, mix))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(_raw(g), _raw(w))
+    assert {k: getattr(meshed.stats, k) for k in STATS} == {k: getattr(plain.stats, k) for k in STATS}
+    assert all(h.data_parallelism == 1 and h.mesh is mesh for h in meshed._handles.values())
+    frontends = [(n, i, m) for n, i, m in mix if n in ("dense", "dense_b", "overlap", "binned")]
+    ref = j_meshed.serve(_requests(jpipe, frontends))
+    port = meshed.serve(_requests(ppipe, frontends))
+    counts_close(np.concatenate([_raw(x).ravel() for x in port]), np.concatenate([_raw(x).ravel() for x in ref]))
+
+
+def test_compile_takes_a_mesh(models, heads):
+    """``fpca.compile(mesh=)`` on a model program: dense, region-skip and
+    odd-batch calls equal the unmeshed handle's bit for bit; a mesh on
+    another device type is refused."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(device="cpu")
+    prog = _models(fpca, _specs(fpca)["dense"])["cnn"]
+    hp = head_params_from_numpy(heads["cnn"], device="cpu")
+    kw = dict(backend="basis", device="cpu", weights=_kernel(12), head_params=hp, model=models[1][75])
+    a, b = fpca.compile(prog, mesh=mesh, **kw), fpca.compile(prog, **kw)
+    rng = np.random.default_rng(3)
+    frames = rng.uniform(0, 1, (3, H, W, 3)).astype(np.float32)
+    spec = prog.spec
+    mask = rng.random((3, -(-spec.eff_h // spec.skip_block), -(-spec.eff_w // spec.skip_block))) < 0.4
+    assert torch.equal(a.run(frames), b.run(frames))
+    assert torch.equal(a.run(frames, block_mask=mask), b.run(frames, block_mask=mask))
+    assert a.data_parallelism == 1 and a._padded_batch(3) == 4
+    with pytest.raises(ValueError, match="mesh is on 'cpu' devices"):
+        fpca.CompiledFrontend(prog.frontend, backend=a.backend, model=a.model, device=torch.device("meta"), mesh=mesh)
