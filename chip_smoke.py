@@ -339,6 +339,13 @@ SERVER_WARM, FAN_SOLO_TICKS = 4, 32
 SHARD_FLEET_CAMERAS, SHARD_FLEET_TICKS, SHARD_SERVER_TICKS = 3, 10, 16
 FPCA_CELL_CHECK_ROWS = 200_000
 DRYRUN_TIMEOUT_S = 300
+# one full-size single-pod cell of each sharded path of the model code:
+# MoE dispatch, decode attention, KV heads that do not divide the model axis
+# (yi-9b 4, phi3-medium-14b 10, against 8), Mamba2 heads and decode, and the
+# sliding-window ring fill
+DRYRUN_SHARDED_CELLS = ("granite-moe-3b-a800m:train_4k", "qwen3-1.7b:decode_32k", "yi-9b:prefill_32k",
+                        "phi3-medium-14b:decode_32k", "mamba2-2.7b:prefill_32k", "mamba2-2.7b:decode_32k",
+                        "h2o-danube-1.8b:prefill_32k")
 # the FPCA training path (examples/train_fpca_cnn_torch.py at its defaults,
 # read from the example: STEPS AdamW steps of BATCH per mode, ADC_BITS,
 # NVM_LEVELS); the card-vs-host check at 20x20 frames, 4 channels, batch 4;
@@ -2134,20 +2141,31 @@ def compression_phase(dev: torch.device, smi: str, grads: dict, mesh) -> dict:
 def dryrun_phase(smi: str) -> dict:
     """``python -m repro_torch.launch.dryrun`` as subprocesses on torch's
     fake process group (nothing on the card): qwen3-1.7b x train_4k on the
-    single-pod mesh and the FPCA cell on both meshes; prints each record's
-    terms and per-rank bytes."""
+    single-pod mesh, the FPCA cell on both meshes, and one cell of each
+    sharded path of the model code at full size on the single-pod mesh
+    (``DRYRUN_SHARDED_CELLS``, one process); prints each record's terms and
+    per-rank bytes.  A failed cell fails the script."""
     out_dir = ROOT / "artifacts" / "dryrun" / "chip_smoke"
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     records = {}
-    for argv in (["--arch", "qwen3-1.7b", "--shape", "train_4k", "--mesh", "single"],
-                 ["--arch", "fpca-frontend", "--mesh", "both"]):
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", *argv, "--tag", "chip_smoke",
-                               "--force"], cwd=ROOT, env=env, capture_output=True, text=True,
-                              timeout=DRYRUN_TIMEOUT_S)
-        tail = "\n".join(line for line in proc.stdout.splitlines() if line.startswith(("[", "===", "all")))
-        print(f"dry run {' '.join(argv)}: rc {proc.returncode} in {time.perf_counter() - t0:.1f} s\n{tail}")
-        check(proc.returncode == 0, f"dry run {argv} failed:\n{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    runs = (["--arch", "qwen3-1.7b", "--shape", "train_4k", "--mesh", "single"],
+            ["--arch", "fpca-frontend", "--mesh", "both"],
+            ["--cells", ",".join(DRYRUN_SHARDED_CELLS), "--mesh", "single"])
+    t0 = time.perf_counter()
+    # side by side: each is a process of its own on the host's cores
+    procs = [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", *argv, "--tag", "chip_smoke",
+                               "--force"], cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for argv in runs]
+    try:
+        for argv, proc in zip(runs, procs):
+            out, err = proc.communicate(timeout=max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)))
+            tail = "\n".join(line for line in out.splitlines() if line.startswith(("[", "===", "all")))
+            print(f"dry run {' '.join(argv)}: rc {proc.returncode} after {time.perf_counter() - t0:.1f} s\n{tail}")
+            check(proc.returncode == 0, f"dry run {argv} failed:\n{out[-2000:]}\n{err[-2000:]}")
+    finally:
+        for proc in procs:
+            proc.kill()
+            proc.wait()
     for path in sorted(out_dir.glob("*.json")):
         rec = json.loads(path.read_text())
         t = rec["terms"]

@@ -42,7 +42,7 @@ from repro_torch.training.optimizer import AdamWConfig, AdamWState
 from repro_torch.training.train_step import make_train_step, pick_microbatches
 from repro_torch.training.tree import tree_leaves, tree_map
 
-__all__ = ["CellPlan", "build_cell", "trace_cell"]
+__all__ = ["CellPlan", "build_cell", "trace_cell", "meshed"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,22 +157,29 @@ def per_device_bytes(shape: ShapeSpec, args: tuple) -> dict[str, int]:
     return out
 
 
+@contextlib.contextmanager
+def meshed(mesh):
+    """The context a meshed step runs in: ``mesh`` as the ambient mesh, and
+    the plain tensors the step makes (positions, masks, zero accumulators)
+    replicated on every rank beside its DTensors."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    with compat.set_mesh(mesh), implicit_replication():
+        yield mesh
+
+
 def trace_cell(
     cfg: ModelConfig, shape: ShapeSpec, mesh, plan: CellPlan = CellPlan(), hw: HW = HW()
 ) -> dict[str, Any]:
     """Build one cell, run its step once on meta under the step counter and
     return its roofline record (:func:`repro_torch.launch.roofline.summarize_cell`)."""
-    from torch.distributed.tensor.experimental import implicit_replication
-
     t0 = time.time()
     step, args = build_cell(cfg, shape, mesh, plan)
     pdb = per_device_bytes(shape, args)
     t_build = time.time() - t0
     t0 = time.time()
-    # implicit_replication: constants the step makes (positions, masks) are
-    # plain tensors, replicated on every rank
     grad = contextlib.nullcontext() if shape.kind == "train" else torch.no_grad()
-    with compat.set_mesh(mesh), implicit_replication(), grad:
+    with meshed(mesh), grad:
         stats = analyze_step(step, *args, world=mesh.size())
     rec = summarize_cell(stats, cfg, shape, mesh.size(), hw, per_device_bytes=pdb)
     rec.update(build_s=round(t_build, 2), trace_s=round(time.time() - t0, 2))

@@ -5,6 +5,7 @@ per-rank bytes, counts and roofline terms.  Run it as a module::
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-1.7b --shape train_4k
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch fpca-frontend --mesh both
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --cells yi-9b:prefill_32k,mamba2-2.7b:decode_32k
 
 The reference forces 512 host devices through ``XLA_FLAGS`` and compiles
 each cell.  This module instead creates a process group of the mesh's world
@@ -154,6 +155,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--shape", choices=sorted(SHAPES) + sorted(FPCA_SHAPES), help="single shape")
     ap.add_argument("--mesh", choices=["single", "multi", "both"], default="single")
     ap.add_argument("--all", action="store_true", help="run the full matrix")
+    ap.add_argument("--cells", default="", help="comma-separated arch:shape cells, traced in one process")
     ap.add_argument("--tag", default="baseline", help="artifact subdirectory")
     ap.add_argument("--remat", default="full")
     ap.add_argument("--n-micro", type=int, default=0)
@@ -181,8 +183,8 @@ def main(argv: list[str] | None = None) -> None:
     argv = sys.argv[1:] if argv is None else argv
     ap = _parser()
     args = ap.parse_args(argv)
-    if not (args.all or args.arch):
-        ap.error("pass --all or --arch")
+    if not (args.all or args.arch or args.cells):
+        ap.error("pass --all, --arch or --cells")
     if args.block_k:
         ap.error("--block-k has no effect in the port: its flash kernels tile the KV sequence by a fixed 64 rows")
     if args.mesh == "both":
@@ -202,63 +204,60 @@ def main(argv: list[str] | None = None) -> None:
         n_micro=args.n_micro,
     )
     archs = [args.arch] if args.arch else sorted(ARCHS)
-    if args.arch == "fpca-frontend":
-        shapes = [args.shape] if args.shape else sorted(FPCA_SHAPES)
-    else:
-        shapes = [args.shape] if args.shape else sorted(SHAPES)
     if args.all and not args.arch:
         archs = archs + ["fpca-frontend"]
     multi = args.mesh == "multi"
 
     out_dir = ARTIFACTS / args.tag
     out_dir.mkdir(parents=True, exist_ok=True)
+    if args.cells:
+        cells = [tuple(c.split(":")) for c in args.cells.split(",")]
+    else:
+        cells = [(arch, shape_name) for arch in archs
+                 for shape_name in ([args.shape] if args.shape else
+                                    sorted(FPCA_SHAPES) if arch == "fpca-frontend" else sorted(SHAPES))]
     failures = []
-    for arch in archs:
-        if args.shape:
-            arch_shapes = [args.shape]
-        else:
-            arch_shapes = sorted(FPCA_SHAPES) if arch == "fpca-frontend" else shapes
-        for shape_name in arch_shapes:
-            mesh_tag = "multi" if multi else "single"
-            path = out_dir / f"{arch}__{shape_name}__{mesh_tag}.json"
-            if path.exists() and not args.force:
-                print(f"[skip existing] {path.name}")
-                continue
-            label = f"{arch} x {shape_name} x {mesh_tag}"
-            print(f"=== {label} ===", flush=True)
-            try:
-                if arch == "fpca-frontend":
-                    rec = run_fpca_cell(
-                        shape_name, multi,
-                        fuse_phases=args.fpca_fuse, bf16=args.fpca_bf16, row_shard=args.fpca_rowshard,
-                    )
-                else:
-                    overrides = {}
-                    if args.capacity_factor:
-                        overrides["moe_capacity_factor"] = args.capacity_factor
-                    if args.no_vocab_shard:
-                        overrides["logits_vocab_shard"] = False
-                    if args.moe_local_dispatch:
-                        overrides["moe_local_dispatch"] = True
-                    rec = run_cell(arch, shape_name, multi, plan, overrides)
-                path.write_text(json.dumps(rec, indent=2, default=float))
-                if "skipped" in rec:
-                    print(f"[skipped] {rec['skipped']}")
-                else:
-                    t = rec["terms"]
-                    print(
-                        f"[ok] trace={rec['trace_s']}s flops={rec['flops_per_device']:.4g} "
-                        f"bytes={rec['bytes_per_device']:.4g} "
-                        f"wire={rec['collectives']['total_wire_bytes']:.4g} "
-                        f"compute={t['compute_s']:.4g}s memory={t['memory_s']:.4g}s "
-                        f"collective={t['collective_s']:.4g}s dominant={t['dominant']} "
-                        f"per_device_bytes={json.dumps(rec['per_device_bytes'])}",
-                        flush=True,
-                    )
-            except Exception as e:  # noqa: BLE001 — sweep must survive cell bugs
-                failures.append(label)
-                path.with_suffix(".error").write_text(traceback.format_exc())
-                print(f"[FAIL] {label}: {type(e).__name__}: {e}", flush=True)
+    for arch, shape_name in cells:
+        mesh_tag = "multi" if multi else "single"
+        path = out_dir / f"{arch}__{shape_name}__{mesh_tag}.json"
+        if path.exists() and not args.force:
+            print(f"[skip existing] {path.name}")
+            continue
+        label = f"{arch} x {shape_name} x {mesh_tag}"
+        print(f"=== {label} ===", flush=True)
+        try:
+            if arch == "fpca-frontend":
+                rec = run_fpca_cell(
+                    shape_name, multi,
+                    fuse_phases=args.fpca_fuse, bf16=args.fpca_bf16, row_shard=args.fpca_rowshard,
+                )
+            else:
+                overrides = {}
+                if args.capacity_factor:
+                    overrides["moe_capacity_factor"] = args.capacity_factor
+                if args.no_vocab_shard:
+                    overrides["logits_vocab_shard"] = False
+                if args.moe_local_dispatch:
+                    overrides["moe_local_dispatch"] = True
+                rec = run_cell(arch, shape_name, multi, plan, overrides)
+            path.write_text(json.dumps(rec, indent=2, default=float))
+            if "skipped" in rec:
+                print(f"[skipped] {rec['skipped']}")
+            else:
+                t = rec["terms"]
+                print(
+                    f"[ok] trace={rec['trace_s']}s flops={rec['flops_per_device']:.4g} "
+                    f"bytes={rec['bytes_per_device']:.4g} "
+                    f"wire={rec['collectives']['total_wire_bytes']:.4g} "
+                    f"compute={t['compute_s']:.4g}s memory={t['memory_s']:.4g}s "
+                    f"collective={t['collective_s']:.4g}s dominant={t['dominant']} "
+                    f"per_device_bytes={json.dumps(rec['per_device_bytes'])}",
+                    flush=True,
+                )
+        except Exception as e:  # noqa: BLE001 — sweep must survive cell bugs
+            failures.append(label)
+            path.with_suffix(".error").write_text(traceback.format_exc())
+            print(f"[FAIL] {label}: {type(e).__name__}: {e}", flush=True)
     if failures:
         print(f"\n{len(failures)} FAILED cells: {failures}")
         raise SystemExit(1)

@@ -34,7 +34,7 @@ from typing import Any
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import Shard
 
-from repro_torch.compat import Layout, distribute, layout_for, run_on_shards  # noqa: F401 (re-exported)
+from repro_torch.compat import Layout, distribute, layout_for  # noqa: F401 (re-exported)
 from repro_torch.launch.mesh import axis_sizes, data_axes
 from repro_torch.training.tree import tree_leaves, tree_unflatten
 

@@ -25,14 +25,17 @@ explicit axis in the score einsums.
 
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
+from torch.distributed.tensor import Partial, Replicate, Shard
 
 from repro_torch.models.layers import init_dense, init_rms_norm, is_dtensor, rms_norm, rope
 
 __all__ = [
     "init_attention",
+    "split_heads",
     "attend_full",
     "attend_blockwise",
     "attend_decode",
@@ -68,14 +71,25 @@ def init_attention(
     return p
 
 
+def split_heads(t: torch.Tensor, n: int, d: int) -> torch.Tensor:
+    """(..., n * d) -> (..., n, d).  Under a mesh, a DTensor whose last dim
+    is sharded into parts that are not whole heads (K/V with fewer heads
+    than the model axis; the reference's GSPMD pads them) is gathered on
+    those mesh dims first."""
+    if is_dtensor(t):
+        last = [i for i, p in enumerate(t.placements) if isinstance(p, Shard) and p.dim % t.ndim == t.ndim - 1]
+        if n % math.prod(t.device_mesh.size(i) for i in last):
+            t = t.redistribute(t.device_mesh, [Replicate() if i in last else p for i, p in enumerate(t.placements)])
+    return t.reshape(*t.shape[:-1], n, d)
+
+
 def _project_qkv(
     params: dict, x: torch.Tensor, positions: torch.Tensor, cfg: Any
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    B, S, _ = x.shape
     H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ params["wq"]["w"]).reshape(B, S, H, D)
-    k = (x @ params["wk"]["w"]).reshape(B, S, KV, D)
-    v = (x @ params["wv"]["w"]).reshape(B, S, KV, D)
+    q = split_heads(x @ params["wq"]["w"], H, D)
+    k = split_heads(x @ params["wk"]["w"], KV, D)
+    v = split_heads(x @ params["wv"]["w"], KV, D)
     if "q_norm" in params:
         q = rms_norm(params["q_norm"], q)
         k = rms_norm(params["k_norm"], k)
@@ -180,7 +194,10 @@ def attend_decode(
 ) -> torch.Tensor:
     """Single-step attention against a cache. q (B,1,H,D), caches
     (B,Smax,KV,D); ``cache_len`` (B,) counts the valid entries, the new
-    token's included."""
+    token's included.  Under a mesh each rank attends over its shards of
+    the cache (:func:`_decode_on_shards`)."""
+    if is_dtensor(k_cache):
+        return _decode_on_shards(q, k_cache, v_cache, cache_len, window)
     B, _, H, D = q.shape
     KV = k_cache.shape[2]
     qg = _grouped(q, KV).float()
@@ -235,10 +252,72 @@ def flash_attention(
     from repro_torch.kernels.flash_attention import kernel
 
     if is_dtensor(q):
-        # each rank attends over its batch rows and heads, whole sequences
-        from repro_torch.compat import run_on_shards
-
-        return run_on_shards(flash_attention, (q, k, v), (0, 2), causal=causal, window=window)
+        return _attend_on_shards(q, k, v, causal=causal, window=window)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, window)
     return kernel.flash_attention_cuda(q, k, v, causal=causal, window=window)
+
+
+# ---------------------------------------------------------------------------
+# Under a mesh: attention as plain code on each rank's shards
+# ---------------------------------------------------------------------------
+
+
+def _attend_on_shards(q, k, v, **kw):
+    """:func:`flash_attention` on each rank's batch rows and query heads,
+    whole sequences.  K/V take q's layout where their heads split like q's;
+    otherwise (fewer KV heads than ranks on the heads' mesh dims) they are
+    gathered there and each rank reads the KV heads of its own query heads
+    (:func:`repro_torch.compat.for_heads`), not those of its local head
+    indices."""
+    from repro_torch import compat
+
+    mesh = q.device_mesh
+    H, KV = q.shape[2], k.shape[2]
+    pq = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate() for p in q.placements]
+    heads = [i for i, p in enumerate(pq) if p == Shard(2)]
+    ext = math.prod(mesh.size(i) for i in heads)
+    if H % ext == 0 and KV % ext == 0:
+        q_l, k_l, v_l = (compat.local(t, pq) for t in (q, k, v))
+    else:
+        pk = [Replicate() if i in heads else p for i, p in enumerate(pq)]
+        grad = [Partial() if i in heads else p for i, p in enumerate(pq)]
+        h0, hl = compat.span(q, 2, pq)
+        q_l = compat.local(q, pq)
+        k_l, v_l = (compat.for_heads(compat.local(t, pk, grad), 2, h0, hl, H // KV) for t in (k, v))
+    return compat.wrap(flash_attention(q_l, k_l, v_l, **kw), mesh, pq, q.shape)
+
+
+def _decode_on_shards(q, k_cache, v_cache, cache_len, window):
+    """:func:`attend_decode` on each rank's shards of the cache: q takes the
+    cache's batch and KV-head layout.  Where the cache's sequence axis is
+    sharded (sequence parallelism for batch-1 caches, or the model axis
+    when the KV heads do not divide it) every rank scores its own slots and
+    the softmax is combined across them: the global row max first, then
+    the sums of the rescaled weights and values."""
+    from repro_torch import compat
+
+    mesh = k_cache.device_mesh
+    pc = k_cache.placements
+    seq = [i for i, p in enumerate(pc) if p == Shard(1)]
+    pq = [p if p in (Shard(0), Shard(2)) else Replicate() for p in pc]
+    q_l, k_l, v_l = compat.local(q, pq), compat.local(k_cache, pc), compat.local(v_cache, pc)
+    b0, bl = compat.span(k_cache, 0)
+    lens = (compat.local(cache_len, [Replicate()] * mesh.ndim) if is_dtensor(cache_len) else cache_len)[b0 : b0 + bl]
+    if not seq:
+        out = attend_decode(q_l, k_l, v_l, lens, window=window)
+    else:
+        s0, sl = compat.span(k_cache, 1)
+        qg = _grouped(q_l, k_l.shape[2]).float()
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_l.float()) * q.shape[-1] ** -0.5
+        pos_k = s0 + torch.arange(sl, device=q_l.device)[None, :]
+        mask = pos_k < lens[:, None]
+        if window is not None:
+            mask &= pos_k >= lens[:, None] - window
+        s = s.masked_fill(~mask[:, None, None, None, :], NEG_INF)
+        m = compat.reduce_over(s.amax(dim=-1, keepdim=True), mesh, seq, "max")
+        p = torch.exp(s - m)
+        num = compat.reduce_over(torch.einsum("bhgqk,bkhd->bqhgd", p, v_l.float()), mesh, seq)
+        den = compat.reduce_over(p.sum(dim=-1), mesh, seq)                         # (b, h, g, q)
+        out = (num / den.permute(0, 3, 1, 2)[..., None]).reshape(q_l.shape).to(q.dtype)
+    return compat.wrap(out, mesh, pq, q.shape)

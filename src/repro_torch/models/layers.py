@@ -245,9 +245,15 @@ def maybe_shard(x: torch.Tensor, *spec) -> torch.Tensor:
 
 
 def shard_batch(x: torch.Tensor) -> torch.Tensor:
-    """Pin the leading batch axis to the data axes and replicate the rest.
+    """Pin the leading batch axis to the data axes that shard it evenly
+    (:func:`repro_torch.compat.batch_placements`) and replicate the rest.
     The identity without an ambient mesh."""
-    return maybe_shard(x, ("pod", "data"), *([None] * (x.ndim - 1)))
+    from repro_torch import compat
+
+    mesh = compat.get_abstract_mesh()
+    if mesh is None or not is_dtensor(x):
+        return x
+    return x.redistribute(mesh, compat.batch_placements(mesh, x.shape[0]))
 
 
 def init_embedding(

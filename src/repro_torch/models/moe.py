@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
-from repro_torch.models.layers import _normal, init_dense, init_swiglu, swiglu
+from repro_torch.models.layers import _normal, init_dense, init_swiglu, is_dtensor, swiglu
 
 __all__ = ["init_moe", "moe"]
 
@@ -188,21 +188,16 @@ def moe(
     E, k = cfg.n_experts, cfg.top_k
     local = bool(getattr(cfg, "moe_local_dispatch", False)) and S > 1
     T = B * S
-    t = x.reshape(T, d)
-
-    logits = t.float() @ params["router"]["w"]                              # (T, E) f32
-    probs = torch.softmax(logits, dim=-1)
-    top_vals, top_idx = _top_k(probs, k)                                    # (T, k)
-    if getattr(cfg, "moe_renormalize", True):
-        top_vals = top_vals / top_vals.sum(dim=-1, keepdim=True)
-    affinity = torch.zeros((T, E), dtype=torch.float32, device=x.device).scatter(1, top_idx, top_vals)
-
     group = S if local else T
     if group <= 256:
         capacity = group
     else:
         capacity = min(max(1, int(math.ceil(group * k * capacity_factor / E))), group)
+    if is_dtensor(x):
+        return _moe_on_shards(params, x, cfg, group, capacity)
+    t = x.reshape(T, d)
 
+    logits, probs, top_idx, affinity, assigned = _route(t, params["router"]["w"], cfg)
     G = B if local else 1
     y, kept = _dispatch(t.reshape(G, group, d), affinity.reshape(G, group, E),
                         top_idx.reshape(G, group, k), params["experts"], capacity)
@@ -214,8 +209,6 @@ def moe(
 
     # ---- auxiliary losses ------------------------------------------------
     # load balance (Switch-style): E * sum_e (token fraction_e * prob mass_e) / k
-    assigned = torch.zeros((T, E), dtype=torch.float32, device=x.device).scatter(
-        1, top_idx, torch.ones_like(top_vals))
     frac = assigned.mean(dim=0)
     mass = probs.mean(dim=0)
     lb_loss = E * (frac * mass).sum() / k
@@ -224,3 +217,97 @@ def moe(
     drop_frac = torch.clamp(1.0 - kept / torch.clamp(assigned.sum(), min=1.0), 0.0, 1.0)
     aux = {"moe_lb_loss": lb_loss, "moe_z_loss": z_loss, "moe_drop_frac": drop_frac}
     return y.reshape(B, S, d).to(x.dtype), aux
+
+
+def _route(t: torch.Tensor, router: torch.Tensor, cfg: Any):
+    """The f32 router over token rows t (T, d): (logits, probs, top-k expert
+    ids (T, k), the affinity (T, E) of the kept top-k probabilities, the
+    one-hot assignment (T, E))."""
+    E, k = cfg.n_experts, cfg.top_k
+    logits = t.float() @ router                                             # (T, E) f32
+    probs = torch.softmax(logits, dim=-1)
+    top_vals, top_idx = _top_k(probs, k)                                    # (T, k)
+    if getattr(cfg, "moe_renormalize", True):
+        top_vals = top_vals / top_vals.sum(dim=-1, keepdim=True)
+    zeros = torch.zeros((t.shape[0], E), dtype=torch.float32, device=t.device)
+    return (logits, probs, top_idx, zeros.scatter(1, top_idx, top_vals),
+            zeros.scatter(1, top_idx, torch.ones_like(top_vals)))
+
+
+def _moe_on_shards(params: dict, x: torch.Tensor, cfg: Any, group: int, capacity: int):
+    """:func:`moe` under a mesh, as plain code on each rank's shards.
+
+    Tokens are the rows of the batch, sharded over the data axes.  Each
+    rank routes its own rows; the routing bookkeeping (the top-C tokens of
+    each expert within each group, the inverse slot map) is computed on the
+    gathered affinity, so global dispatch stays global over all B·S tokens.
+    The (expert, slot) axis is sharded over the data axes: each rank
+    gathers the tokens of its slots, the expert banks run as DTensor bmms
+    (their hidden dim over ``model``), and each rank adds its slots'
+    weighted outputs into every token row in ascending expert id; those
+    partial sums are reduce-scattered back to the token rows."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from repro_torch import compat
+
+    mesh = x.device_mesh
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    T, C = B * S, capacity
+    G = T // group
+    rows = compat.batch_placements(mesh, B)                        # the batch rows over the data axes
+    data = [p == Shard(0) for p in rows]
+    data_dims = [i for i, dp in enumerate(data) if dp]
+    full = [Replicate()] * mesh.ndim
+    partial = [Partial() if dp else Replicate() for dp in data]   # each data rank's part of a gathered tensor
+
+    def gather(t_l: torch.Tensor, grad=None) -> torch.Tensor:
+        """(rows of this rank, S, ...) -> (T, ...) of every rank."""
+        g = compat.local(compat.wrap(t_l, mesh, rows, (B, *t_l.shape[1:])), full, grad)
+        return g.reshape(T, *g.shape[2:])
+
+    x_l = compat.local(x, rows)
+    t_l = x_l.reshape(-1, d)
+    logits, probs, top_idx, affinity, assigned = _route(t_l, compat.local(params["router"]["w"], full, partial), cfg)
+    aff = gather(affinity.view(-1, S, E), partial)                          # (T, E)
+    ids = gather(top_idx.sort(dim=-1).values.view(-1, S, k))                # (T, k), ascending expert id
+
+    # every group's top-C tokens per expert and its inverse slot map: the
+    # kept slot p = g * C + c of each token's experts in ascending id, or -1
+    sel_w, sel_idx = _top_k(aff.view(G, group, E).transpose(1, 2), C)      # (G, E, C)
+    slot_ids = torch.arange(G * C, device=aff.device).view(G, 1, C).expand(G, E, C)
+    inv = torch.full((G, E, group), -1, dtype=torch.long, device=aff.device)
+    inv.scatter_(2, sel_idx, torch.where(sel_w > 0, slot_ids, -1))
+    p = inv.transpose(1, 2).gather(2, ids.view(G, group, k)).view(T, k)
+
+    # this rank's slots [s0, s0 + sl) of each expert's G * C
+    slots = [Shard(1) if dp else Replicate() for dp in data]
+    (_, sl, _), (_, s0, _) = compat.box((E, G * C, d), mesh, slots)
+    mine = (p >= s0) & (p < s0 + sl)
+    slot = torch.where(mine, ids * sl + p - s0, E * sl)[None]             # (1, T, k) into the E * sl local rows
+    token = (sel_idx + (torch.arange(G, device=aff.device) * group).view(G, 1, 1)).transpose(0, 1)
+    token = token.reshape(E, G * C)[:, s0 : s0 + sl]                       # the token row of each local slot
+    w_l = sel_w.transpose(0, 1).reshape(E, G * C)[:, s0 : s0 + sl]
+
+    xe = _TokenGather.apply(gather(x_l, partial)[None], token[None], slot).view(E, sl, d)
+    xe = compat.wrap(xe, mesh, slots, (E, G * C, d))
+    experts = params["experts"]
+    h = F.silu(torch.bmm(xe, experts["gate"])) * torch.bmm(xe, experts["up"])
+    ye = compat.local(torch.bmm(h, experts["down"]), slots)                # (E, sl, d)
+    ye = ye * w_l[..., None].to(ye.dtype)
+    y_part = _Combine.apply(ye.reshape(1, E * sl, d), slot).view(B, S, d)  # this rank's slots, every token
+    y = compat.wrap(y_part, mesh, partial, (B, S, d))
+    y = y.redistribute(mesh, rows)
+    if "shared" in params:
+        gate = torch.sigmoid(x @ params["shared_gate"]["w"]).to(y.dtype)
+        y = y + gate * swiglu(params["shared"], x)
+
+    # ---- auxiliary losses: sums over every rank's rows ---------------------
+    sums = compat.reduce_over(torch.cat([assigned.sum(0), probs.sum(0)]), mesh, data_dims)
+    frac, mass = sums[:E] / T, sums[E:] / T
+    z_sum = compat.reduce_over((torch.logsumexp(logits, dim=-1) ** 2).sum(), mesh, data_dims)
+    kept = (sel_w > 0).sum().float()
+    drop_frac = torch.clamp(1.0 - kept / torch.clamp(sums[:E].sum(), min=1.0), 0.0, 1.0)
+    aux = {"moe_lb_loss": E * (frac * mass).sum() / k, "moe_z_loss": z_sum / T, "moe_drop_frac": drop_frac}
+    return y.to(x.dtype), {n: compat.wrap(v, mesh, full, ()) for n, v in aux.items()}
+

@@ -50,9 +50,10 @@ from typing import Any, Callable
 import torch
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
+from repro_torch import compat
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import _project_qkv, attend_decode, flash_attention, init_attention
+from repro_torch.models.attention import _project_qkv, attend_decode, flash_attention, init_attention, split_heads
 from repro_torch.models.layers import (
     cross_entropy_loss,
     dense,
@@ -63,6 +64,7 @@ from repro_torch.models.layers import (
     init_mlp,
     init_rms_norm,
     init_swiglu,
+    is_dtensor,
     maybe_shard,
     mlp,
     rms_norm,
@@ -213,9 +215,8 @@ def _ffn(p: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, dict
 
 def _cross_kv(p: dict, enc: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """A decoder layer's cross-attention K/V (B, Se, KV, D) of the encoder output."""
-    B, Se, _ = enc.shape
-    shape = (B, Se, cfg.n_kv_heads, cfg.head_dim)
-    return (enc @ p["cross"]["wk"]["w"]).reshape(shape), (enc @ p["cross"]["wv"]["w"]).reshape(shape)
+    KV, D = cfg.n_kv_heads, cfg.head_dim
+    return split_heads(enc @ p["cross"]["wk"]["w"], KV, D), split_heads(enc @ p["cross"]["wv"]["w"], KV, D)
 
 
 def _attn_block_seq(
@@ -241,7 +242,7 @@ def _attn_block_seq(
     x = x + out.reshape(B, S, -1) @ p["attn"]["wo"]["w"]
     if enc_out is not None or cross_kv is not None:
         hc = rms_norm(p["ln_cross"], x, cfg.norm_eps)
-        qc = (hc @ p["cross"]["wq"]["w"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
+        qc = split_heads(hc @ p["cross"]["wq"]["w"], cfg.n_heads, cfg.head_dim)
         kc, vc = cross_kv if cross_kv is not None else _cross_kv(p, enc_out, cfg)
         co = flash_attention(qc, kc, vc, causal=False)
         x = x + co.reshape(B, S, -1) @ p["cross"]["wo"]["w"]
@@ -265,14 +266,14 @@ def _attn_block_decode(
     s_max = cache["k"].shape[1]
     ring = cfg.window is not None and s_max == cfg.window
     slot = pos % s_max if ring else min(pos, s_max - 1)
-    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    for name, new in (("k", k), ("v", v)):
+        _write_slots(cache[name], new.to(cache[name].dtype), slot)
     valid = torch.full((B,), min(pos + 1, s_max), device=x.device)
     out = attend_decode(q, cache["k"], cache["v"], valid)
     x = x + out.reshape(B, 1, -1) @ p["attn"]["wo"]["w"]
     if cross_kv is not None:
         hc = rms_norm(p["ln_cross"], x, cfg.norm_eps)
-        qc = (hc @ p["cross"]["wq"]["w"]).reshape(B, 1, cfg.n_heads, cfg.head_dim)
+        qc = split_heads(hc @ p["cross"]["wq"]["w"], cfg.n_heads, cfg.head_dim)
         full = torch.full((B,), cross_kv["k"].shape[1], device=x.device)
         co = attend_decode(qc, cross_kv["k"], cross_kv["v"], full)
         x = x + co.reshape(B, 1, -1) @ p["cross"]["wo"]["w"]
@@ -286,10 +287,14 @@ def _mamba_layer(p_l: dict, h: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Te
 
 
 def _put_states(dst: dict | None, states: dict, *idx: int) -> None:
-    """Write a Mamba2 layer's conv and SSM states into a cache leaf at ``idx``."""
+    """Write a Mamba2 layer's conv and SSM states into a cache leaf at ``idx``
+    (under a mesh into each rank's shards)."""
     if dst is not None:
         for name in ("conv", "ssm"):
-            dst[name][idx] = states[name]
+            if is_dtensor(dst[name]):
+                compat.assign(dst[name][idx], states[name])
+            else:
+                dst[name][idx] = states[name]
 
 
 def _embed_inputs(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -300,7 +305,8 @@ def _embed_inputs(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         if frontend_embeds is None:
             raise ValueError("vlm family needs frontend_embeds (patch stub)")
         proj = params["projector"]
-        x = torch.cat([dense(proj["w2"], gelu(dense(proj["w1"], frontend_embeds.to(_dt(cfg))))), x], dim=1)
+        patches = shard_batch(frontend_embeds).to(_dt(cfg))
+        x = torch.cat([dense(proj["w2"], gelu(dense(proj["w1"], patches))), shard_batch(x)], dim=1)
     return x
 
 
@@ -421,7 +427,7 @@ def _decoder(params: dict, cfg: ModelConfig, x: torch.Tensor, remat: str = "none
 
 def _encode(params: dict, cfg: ModelConfig, frontend_embeds: torch.Tensor, remat: str = "none") -> torch.Tensor:
     """The encdec encoder over projected frame embeddings (non-causal)."""
-    src = dense(params["src_proj"], frontend_embeds.to(_dt(cfg)))
+    src = dense(params["src_proj"], shard_batch(frontend_embeds).to(_dt(cfg)))
     enc, _ = _attn_stack(params["enc_blocks"], cfg.n_enc_layers, cfg, src, remat, causal=False)
     return rms_norm(params["enc_norm"], enc, cfg.norm_eps)
 
@@ -510,20 +516,32 @@ def init_cache(
     return out
 
 
+def _write_slots(dst: torch.Tensor, x: torch.Tensor, start: int) -> None:
+    """``dst[..., start : start + n, :, :] = x`` for K/V (..., n, KV, D);
+    under a mesh into each rank's shards of the cache."""
+    if is_dtensor(dst):
+        compat.write_into(dst, x, -3, start)
+    else:
+        dst[..., start : start + x.shape[-3], :, :] = x
+
+
 def _fill_kv(dst: torch.Tensor, x: torch.Tensor) -> None:
     """Write prefill K/V (..., S, KV, D) into a zeroed serving cache
     (..., kv_len, KV, D).
 
     Sliding-window caches are ring buffers indexed ``slot = pos % window``:
-    the kept tail of the prompt is scattered to its ring slots so later
-    decode writes land consistently.
+    the kept tail of the prompt goes to its ring slots so later decode
+    writes land consistently.  The slots of the tail are a rotation of one
+    range: token ``S - kv_len + j`` lands in slot ``(j + S) % kv_len``, so
+    two slice copies fill it.
     """
     S, kv_len = x.shape[-3], dst.shape[-3]
     if S > kv_len:   # ring buffer: token t -> slot t % window
-        slots = torch.arange(S - kv_len, S, device=x.device) % kv_len
-        dst[..., slots, :, :] = x[..., S - kv_len :, :, :]
+        tail, r = x[..., S - kv_len :, :, :], S % kv_len
+        _write_slots(dst, tail[..., : kv_len - r, :, :], r)
+        _write_slots(dst, tail[..., kv_len - r :, :, :], 0)
     else:
-        dst[..., :S, :, :] = x
+        _write_slots(dst, x, 0)
 
 
 @torch.no_grad()
@@ -588,8 +606,7 @@ def forward_decode(
         nonlocal x
         h2 = rms_norm(p_l["ln"], x, cfg.norm_eps)
         y, new_c = mamba2_decode_step(p_l["block"], h2, _index(c_stack, *idx), cfg)
-        for k, v in new_c.items():
-            c_stack[k][idx] = v
+        _put_states(c_stack, new_c, *idx)
         x = x + y
 
     if fam in ("dense", "moe", "vlm", "encdec"):
