@@ -215,9 +215,12 @@ then the remaining families, each model's weights freed before the next:
 
 18. the dry run (``python -m repro_torch.launch.dryrun``, subprocesses on
    torch's fake process group, nothing on the card): qwen3-1.7b x train_4k
-   on the 256-rank mesh and the FPCA cell on the 256- and 512-rank meshes,
-   each record's roofline terms and per-rank bytes printed
-   (``dryrun_phase``).
+   on the 256-rank mesh, the FPCA cell on the 256- and 512-rank meshes, one
+   cell of each sharded path of the model code on the 256-rank mesh, and
+   qwen3-1.7b and granite-moe-3b-a800m x prefill_32k on both meshes (the
+   512-rank mesh pads their 32 rows to its 64 data ranks: FLOPs a rank
+   within 1.25x of the 256-rank mesh's), each record's roofline terms and
+   per-rank bytes printed (``dryrun_phase``).
 
 It prints one JSON line ``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {...}}``; a failed phase exits non-zero before
@@ -346,6 +349,12 @@ DRYRUN_TIMEOUT_S = 300
 DRYRUN_SHARDED_CELLS = ("granite-moe-3b-a800m:train_4k", "qwen3-1.7b:decode_32k", "yi-9b:prefill_32k",
                         "phi3-medium-14b:decode_32k", "mamba2-2.7b:prefill_32k", "mamba2-2.7b:decode_32k",
                         "h2o-danube-1.8b:prefill_32k")
+# prefill cells traced on both meshes: the multi-pod mesh's 64 data ranks
+# take one padded row each of the 32, so a rank's FLOPs stay within
+# DRYRUN_PAD_FLOPS of the single-pod mesh's (12x when the 32 rows sharded
+# over the pod axis alone)
+DRYRUN_BOTH_MESHES = ("qwen3-1.7b:prefill_32k", "granite-moe-3b-a800m:prefill_32k")
+DRYRUN_PAD_FLOPS = 1.25
 # the FPCA training path (examples/train_fpca_cnn_torch.py at its defaults,
 # read from the example: STEPS AdamW steps of BATCH per mode, ADC_BITS,
 # NVM_LEVELS); the card-vs-host check at 20x20 frames, 4 channels, batch 4;
@@ -2143,14 +2152,18 @@ def dryrun_phase(smi: str) -> dict:
     fake process group (nothing on the card): qwen3-1.7b x train_4k on the
     single-pod mesh, the FPCA cell on both meshes, and one cell of each
     sharded path of the model code at full size on the single-pod mesh
-    (``DRYRUN_SHARDED_CELLS``, one process); prints each record's terms and
-    per-rank bytes.  A failed cell fails the script."""
+    (``DRYRUN_SHARDED_CELLS``, one process), and two prefill cells on both
+    meshes (``DRYRUN_BOTH_MESHES``: the multi-pod one pads its 32 rows to
+    the 64 data ranks, and its FLOPs a rank must stay within
+    ``DRYRUN_PAD_FLOPS`` of the single-pod mesh's); prints each record's
+    terms and per-rank bytes.  A failed cell fails the script."""
     out_dir = ROOT / "artifacts" / "dryrun" / "chip_smoke"
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     records = {}
     runs = (["--arch", "qwen3-1.7b", "--shape", "train_4k", "--mesh", "single"],
             ["--arch", "fpca-frontend", "--mesh", "both"],
-            ["--cells", ",".join(DRYRUN_SHARDED_CELLS), "--mesh", "single"])
+            ["--cells", ",".join(DRYRUN_SHARDED_CELLS), "--mesh", "single"],
+            ["--cells", ",".join(DRYRUN_BOTH_MESHES), "--mesh", "both"])
     t0 = time.perf_counter()
     # side by side: each is a process of its own on the host's cores
     procs = [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", *argv, "--tag", "chip_smoke",
@@ -2177,6 +2190,14 @@ def dryrun_phase(smi: str) -> dict:
               f"collective {t['collective_s']:.4g} s ({t['dominant']}), wire {rec['collectives']['total_wire_bytes']:.4g} B "
               f"({rec['collectives']['network_wire_bytes']:.4g} across hosts), per-rank bytes "
               f"{json.dumps(rec['per_device_bytes'])}")
+    for cell in DRYRUN_BOTH_MESHES:
+        single, multi = (records["__".join((*cell.split(":"), m))] for m in ("single", "multi"))
+        ratio = multi["flops_per_device"] / single["flops_per_device"]
+        print(f"  {cell} padded on the multi-pod mesh: FLOPs a rank {multi['flops_per_device']:.4g} against "
+              f"{single['flops_per_device']:.4g} single-pod ({ratio:.3f}x, limit {DRYRUN_PAD_FLOPS}x); dominant "
+              f"{multi['terms']['dominant']} {multi['terms']['bound_s']:.4g} s against "
+              f"{single['terms']['dominant']} {single['terms']['bound_s']:.4g} s")
+        check(ratio <= DRYRUN_PAD_FLOPS, f"{cell}: multi-pod FLOPs a rank {ratio:.3f}x the single-pod mesh's")
     return records
 
 

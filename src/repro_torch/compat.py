@@ -24,7 +24,11 @@ what is left is the role the rest of the code relies on:
   :mod:`repro_torch.launch.sharding`'s.  The models run their attention,
   MoE routing and Mamba2 heads as plain torch code on each rank's shards
   through these helpers: only layout changes and collectives are left to
-  DTensor, whose op strategies differ from one torch release to the next.
+  DTensor, whose op strategies differ from one torch release to the next;
+* the padded batch of a train or prefill step: :func:`padded_rows`,
+  :func:`pad_rows` / :func:`unpad_rows` and :func:`real_row_mask` (a batch
+  that does not divide the data axes, padded to them as the reference's
+  GSPMD pads it).
 
 ``cost_analysis_dict`` has no torch counterpart: it normalised XLA's
 ``Compiled.cost_analysis()``, and eager torch compiles nothing to ask.  The
@@ -36,6 +40,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import threading
 from typing import Any, Iterator
 
@@ -47,7 +52,8 @@ from torch.distributed.tensor import DTensor, Placement, Replicate, Shard
 from repro_torch.training.tree import tree_leaves, tree_unflatten
 
 __all__ = ["get_abstract_mesh", "set_mesh", "make_mesh", "Layout", "layout_for", "distribute", "batch_placements",
-           "box", "span", "local", "wrap", "reduce_over", "for_heads", "write_into", "assign"]
+           "padded_rows", "pad_rows", "unpad_rows", "real_row_mask", "box", "span", "local", "wrap", "reduce_over",
+           "for_heads", "write_into", "assign"]
 
 _ambient = threading.local()
 
@@ -125,10 +131,12 @@ def distribute(tree: Any, layouts: Any, *, device: str | torch.device | None = N
 def batch_placements(mesh: DeviceMesh, n: int) -> list[Placement]:
     """Placements of a batch of ``n`` rows: ``Shard(0)`` over the leading
     data axes (``pod``, ``data``, in mesh order) whose extents' product
-    divides ``n``, replicated over the rest.  A batch never shards unevenly
-    (DTensor's view of an uneven shard fails in every matmul); the
-    reference's GSPMD pads it instead, e.g. 32 prefill rows on the 64 data
-    ranks of the multi-pod mesh shard over ``pod`` alone."""
+    divides ``n``, replicated over the rest.  A train or prefill batch
+    divides them all, padded to the data extent when it did not
+    (:func:`pad_rows`, as the reference's GSPMD pads it), so it shards over
+    every data axis; a decode batch that divides neither replicates over the
+    axes it does not divide (DTensor's view of an uneven shard fails in
+    every matmul)."""
     out, ext, stopped = [], 1, False
     for a, size in zip(mesh.mesh_dim_names, mesh.shape):
         if a in ("pod", "data") and not stopped and n % (ext * size) == 0:
@@ -138,6 +146,66 @@ def batch_placements(mesh: DeviceMesh, n: int) -> list[Placement]:
             stopped |= a in ("pod", "data")
             out.append(Replicate())
     return out
+
+
+def _data_dims(mesh: DeviceMesh) -> list[int]:
+    return [i for i, a in enumerate(mesh.mesh_dim_names) if a in ("pod", "data")]
+
+
+def padded_rows(mesh: DeviceMesh, n: int) -> int:
+    """``n`` rows rounded up to a multiple of the data extent (the product
+    of the ``pod`` and ``data`` axes)."""
+    ext = math.prod(mesh.shape[i] for i in _data_dims(mesh))
+    return -(-n // ext) * ext
+
+
+def _rows_layout(x: DTensor, dim: int) -> list[Placement]:
+    """``x``'s placements with tensor dim ``dim`` sharded over every data
+    axis (and over no other)."""
+    data = _data_dims(x.device_mesh)
+    return [Shard(dim) if i in data else Replicate() if isinstance(p, Shard) and p.dim % x.ndim == dim else p
+            for i, p in enumerate(x.placements)]
+
+
+def pad_rows(x: DTensor, n_pad: int, dim: int = 0) -> DTensor:
+    """``x``'s rows along tensor dim ``dim`` padded to ``n_pad`` (a multiple
+    of the data extent, :func:`padded_rows`) and sharded evenly over every
+    data axis.  Each rank's block holds its share of the real rows as
+    DTensor's uneven split lays them out (the leading ranks take the
+    remainder), then zero rows: no row moves between ranks, and
+    :func:`unpad_rows` is the inverse.  The real rows keep their order."""
+    pl = _rows_layout(x, dim)
+    t = local(x, pl)
+    shape = list(x.shape)
+    shape[dim] = n_pad
+    per = box(shape, x.device_mesh, pl)[0][dim]
+    fill = list(t.shape)
+    fill[dim] = per - t.shape[dim]
+    return wrap(torch.cat([t, t.new_zeros(fill)], dim), x.device_mesh, pl, shape)
+
+
+def unpad_rows(x: DTensor, n: int, dim: int = 0) -> DTensor:
+    """The ``n`` real rows of a :func:`pad_rows` batch, each rank keeping
+    its own: a DTensor of ``n`` rows along ``dim`` in DTensor's uneven split
+    over the data axes."""
+    pl = _rows_layout(x, dim)
+    shape = list(x.shape)
+    shape[dim] = n
+    keep = box(shape, x.device_mesh, pl)[0][dim]
+    return wrap(local(x, pl).narrow(dim, 0, keep), x.device_mesh, pl, shape)
+
+
+def real_row_mask(mesh: DeviceMesh, n: int, n_pad: int, device: str | torch.device | None = None) -> torch.Tensor:
+    """(n_pad,) bool: the rows of a :func:`pad_rows` batch that hold real
+    rows, in the padded order (every rank's block in turn).  A block's real
+    count is its share of DTensor's uneven split of ``n``, applied over the
+    data axes in mesh order: each split is ``torch.chunk``'s."""
+    counts = [n]
+    for i in _data_dims(mesh):
+        s = mesh.shape[i]
+        counts = [max(0, min(-(-c // s), c - j * -(-c // s))) for c in counts for j in range(s)]
+    per = n_pad // len(counts)
+    return (torch.arange(per, device=device)[None, :] < torch.tensor(counts, device=device)[:, None]).reshape(-1)
 
 
 def box(shape, mesh: DeviceMesh, placements) -> tuple[tuple[int, ...], tuple[int, ...]]:
@@ -210,22 +278,82 @@ def for_heads(t: torch.Tensor, dim: int, h0: int, hl: int, per: int) -> torch.Te
     return each.narrow(dim, h0 - lo * per, hl)
 
 
-def write_into(dst: DTensor, src: torch.Tensor, dim: int, start: int = 0) -> None:
+def write_into(dst: DTensor, src: torch.Tensor, dim: int, start: int = 0, rows: int | None = None) -> None:
     """``dst[..., start : start + n, ...] = src`` along tensor dim ``dim``
     (``n`` is ``src``'s extent there), in place on each rank's shard of
-    ``dst``: ``src`` is laid out as ``dst`` but whole along ``dim``, and each
-    rank copies the part that falls in its own range.  A plain ``src`` is
-    the same on every rank."""
+    ``dst``.  ``rows``: ``src`` is a :func:`pad_rows` batch (tensor dim 0)
+    of that many real rows, and ``dst`` takes the real rows.  Where ``dst``
+    shards ``dim`` over the innermost data axis and its rows over none (a
+    sequence-parallel cache) the rows move by an all-to-all
+    (:func:`_exchange_rows`); otherwise ``src`` is laid out as ``dst`` but
+    whole along ``dim``, and each rank copies the part that falls in its own
+    range.  A plain ``src`` is the same on every rank."""
     mesh = dst.device_mesh
     dim %= dst.ndim
+    o, n = span(dst, dim)
+    if isinstance(src, DTensor) and _sequence_parallel(dst, src, dim):
+        src_l = _exchange_rows(dst, src, dim, start, rows)
+        lo = max(start, o)
+        if src_l.shape[dim]:
+            dst._local_tensor.narrow(dim, lo - o, src_l.shape[dim]).copy_(src_l)
+        return
+    if rows is not None:
+        src = unpad_rows(src, rows)
     pl = [Replicate() if isinstance(p, Shard) and p.dim == dim else p for p in dst.placements]
     if not isinstance(src, DTensor):
         src = wrap(src, mesh, [Replicate()] * mesh.ndim, src.shape)
     src_l = local(src, pl)
-    o, n = span(dst, dim)
     lo, hi = max(start, o), min(start + src_l.shape[dim], o + n)
     if hi > lo:
         dst._local_tensor.narrow(dim, lo - o, hi - lo).copy_(src_l.narrow(dim, lo - start, hi - lo))
+
+
+def _sequence_parallel(dst: DTensor, src: DTensor, dim: int) -> bool:
+    """Whether ``dst`` shards tensor dim ``dim`` over the innermost data
+    axis alone and its rows (dim 0) over no data axis, while ``src``'s rows
+    split evenly over every data axis."""
+    mesh, data = dst.device_mesh, _data_dims(dst.device_mesh)
+    if not data or dim == 0 or src.shape[0] % math.prod(mesh.shape[i] for i in data):
+        return False
+    on_dim = [i for i, p in enumerate(dst.placements) if isinstance(p, Shard) and p.dim == dim]
+    return on_dim == [data[-1]] and not any(dst.placements[i] == Shard(0) for i in data)
+
+
+def _exchange_rows(dst: DTensor, src: DTensor, dim: int, start: int, rows: int | None) -> torch.Tensor:
+    """The rows of ``src`` (the real ones of a padded batch) in this rank's
+    range of ``dst`` along ``dim``, as ``dst``'s local layout has them.
+    Each rank holds its rows of ``src``, whole along ``dim``; over the
+    innermost data axis an all-to-all sends each rank's rows in every other
+    rank's range (the least that has to move: a gather would bring each rank
+    all of them), then the outer data axes gather the rows, in the padded
+    order, and the real ones are kept."""
+    import torch.distributed._functional_collectives as funcol
+
+    mesh, data = dst.device_mesh, _data_dims(dst.device_mesh)
+    pl = [Shard(0) if i in data else Replicate() if isinstance(p, Shard) and p.dim in (0, dim) else p
+          for i, p in enumerate(dst.placements)]
+    src_l = local(src, pl)                                    # (rows of this rank, ..., whole along dim, ...)
+    inner, size, extent = data[-1], dst.shape[dim], src.shape[dim]
+    chunk = -(-size // mesh.shape[inner])
+
+    def part(k: int) -> torch.Tensor:
+        """The rows' part in rank k's range along the inner data axis."""
+        lo, hi = max(start, k * chunk), min(start + extent, size, (k + 1) * chunk)
+        return src_l.narrow(dim, lo - start if hi > lo else 0, max(hi - lo, 0))
+
+    parts = [part(k) for k in range(mesh.shape[inner])]
+    mine = list(parts[mesh.get_local_rank(inner)].shape)
+    recv = funcol.all_to_all_single(torch.cat([t.reshape(-1) for t in parts]),
+                                    [math.prod(mine)] * len(parts), [t.numel() for t in parts],
+                                    mesh.get_group(inner))
+    out = recv.view(len(parts) * mine[0], *mine[1:])
+    gather = getattr(funcol, "all_gather_single", None) or funcol.all_gather_tensor   # renamed after torch 2.11
+    for i in reversed(data[:-1]):
+        out = gather(out, 0, mesh.get_group(i))
+    if rows is not None:
+        keep = real_row_mask(mesh, rows, src.shape[0]).nonzero()[:, 0]
+        out = out.index_select(0, keep.to(out.device))
+    return out
 
 
 def assign(dst: DTensor, src: torch.Tensor) -> None:

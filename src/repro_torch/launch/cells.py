@@ -110,6 +110,8 @@ def build_cell(
     if shape.kind == "prefill":
         geo = _batch_geometry(cfg, shape)
         dp_axes = data_axes(mesh)
+        # a batch that does not divide the data axes shards unevenly here;
+        # the step pads it to them (models/transformer.py::_pad_batch)
         tokens = _placed(_meta(geo["tokens"], torch.int32), layout_for(mesh, (dp_axes, None)), mesh)
         args = [tokens]
         if "frontend" in geo:

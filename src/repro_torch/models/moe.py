@@ -177,24 +177,29 @@ def moe(
     cfg: Any,
     *,
     capacity_factor: float = 1.25,
+    rows: int | None = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """MoE FFN. x (B, S, d) -> (y, aux losses ``moe_lb_loss``,
     ``moe_z_loss``, ``moe_drop_frac``).
 
     ``cfg.moe_local_dispatch`` routes within each sequence instead of over
     the whole batch: capacity is then per (sequence, expert).  A group of
-    at most 256 tokens (decode) keeps every token: capacity = group."""
+    at most 256 tokens (decode) keeps every token: capacity = group.
+    ``rows``: under a mesh, the real rows of a batch padded to the data
+    extent (:func:`repro_torch.compat.pad_rows`); capacity counts only
+    their tokens, and the padding rows take no slot and enter no aux term."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     local = bool(getattr(cfg, "moe_local_dispatch", False)) and S > 1
-    T = B * S
-    group = S if local else T
+    n = B if rows is None else rows
+    group = S if local else n * S
     if group <= 256:
         capacity = group
     else:
         capacity = min(max(1, int(math.ceil(group * k * capacity_factor / E))), group)
     if is_dtensor(x):
-        return _moe_on_shards(params, x, cfg, group, capacity)
+        return _moe_on_shards(params, x, cfg, S if local else B * S, capacity, n)
+    T = B * S
     t = x.reshape(T, d)
 
     logits, probs, top_idx, affinity, assigned = _route(t, params["router"]["w"], cfg)
@@ -234,18 +239,22 @@ def _route(t: torch.Tensor, router: torch.Tensor, cfg: Any):
             zeros.scatter(1, top_idx, torch.ones_like(top_vals)))
 
 
-def _moe_on_shards(params: dict, x: torch.Tensor, cfg: Any, group: int, capacity: int):
+def _moe_on_shards(params: dict, x: torch.Tensor, cfg: Any, group: int, capacity: int, n: int):
     """:func:`moe` under a mesh, as plain code on each rank's shards.
 
-    Tokens are the rows of the batch, sharded over the data axes.  Each
-    rank routes its own rows; the routing bookkeeping (the top-C tokens of
-    each expert within each group, the inverse slot map) is computed on the
-    gathered affinity, so global dispatch stays global over all B·S tokens.
-    The (expert, slot) axis is sharded over the data axes: each rank
-    gathers the tokens of its slots, the expert banks run as DTensor bmms
-    (their hidden dim over ``model``), and each rank adds its slots'
-    weighted outputs into every token row in ascending expert id; those
-    partial sums are reduce-scattered back to the token rows."""
+    Tokens are the rows of the batch, sharded over the data axes; ``group``
+    is the token positions of a routing group, ``n`` the real rows of a
+    padded batch.  Each rank routes its own rows; the routing bookkeeping
+    (the top-C tokens of each expert within each group, the inverse slot
+    map) is computed on the gathered affinity, so global dispatch stays
+    global over all B·S tokens.  A padding row's affinity is -1 there:
+    every real token sorts before it, so with C at most a group's real
+    tokens it takes no slot, and the real tokens' top-C (ties included) is
+    the unpadded one.  The (expert, slot) axis is sharded over the data
+    axes: each rank gathers the tokens of its slots, the expert banks run
+    as DTensor bmms (their hidden dim over ``model``), and each rank adds
+    its slots' weighted outputs into every token row in ascending expert
+    id; those partial sums are reduce-scattered back to the token rows."""
     from torch.distributed.tensor import Partial, Replicate, Shard
 
     from repro_torch import compat
@@ -271,6 +280,13 @@ def _moe_on_shards(params: dict, x: torch.Tensor, cfg: Any, group: int, capacity
     logits, probs, top_idx, affinity, assigned = _route(t_l, compat.local(params["router"]["w"], full, partial), cfg)
     aff = gather(affinity.view(-1, S, E), partial)                          # (T, E)
     ids = gather(top_idx.sort(dim=-1).values.view(-1, S, k))                # (T, k), ascending expert id
+    z = torch.logsumexp(logits, dim=-1) ** 2
+    if n < B:   # a padded batch: its padding rows sort after every real token and count in no aux term
+        real = compat.real_row_mask(mesh, n, B, x.device)
+        aff = torch.where(real.repeat_interleave(S)[:, None], aff, -1.0)
+        b0 = compat.box((B,), mesh, rows)[1][0]
+        real_l = real[b0 : b0 + x_l.shape[0]].repeat_interleave(S).float()
+        assigned, probs, z = assigned * real_l[:, None], probs * real_l[:, None], z * real_l
 
     # every group's top-C tokens per expert and its inverse slot map: the
     # kept slot p = g * C + c of each token's experts in ascending id, or -1
@@ -302,12 +318,11 @@ def _moe_on_shards(params: dict, x: torch.Tensor, cfg: Any, group: int, capacity
         gate = torch.sigmoid(x @ params["shared_gate"]["w"]).to(y.dtype)
         y = y + gate * swiglu(params["shared"], x)
 
-    # ---- auxiliary losses: sums over every rank's rows ---------------------
+    # ---- auxiliary losses: sums over every rank's real rows ----------------
     sums = compat.reduce_over(torch.cat([assigned.sum(0), probs.sum(0)]), mesh, data_dims)
-    frac, mass = sums[:E] / T, sums[E:] / T
-    z_sum = compat.reduce_over((torch.logsumexp(logits, dim=-1) ** 2).sum(), mesh, data_dims)
+    frac, mass = sums[:E] / (n * S), sums[E:] / (n * S)
+    z_sum = compat.reduce_over(z.sum(), mesh, data_dims)
     kept = (sel_w > 0).sum().float()
     drop_frac = torch.clamp(1.0 - kept / torch.clamp(sums[:E].sum(), min=1.0), 0.0, 1.0)
-    aux = {"moe_lb_loss": E * (frac * mass).sum() / k, "moe_z_loss": z_sum / T, "moe_drop_frac": drop_frac}
-    return y.to(x.dtype), {n: compat.wrap(v, mesh, full, ()) for n, v in aux.items()}
-
+    aux = {"moe_lb_loss": E * (frac * mass).sum() / k, "moe_z_loss": z_sum / (n * S), "moe_drop_frac": drop_frac}
+    return y.to(x.dtype), {name: compat.wrap(v, mesh, full, ()) for name, v in aux.items()}

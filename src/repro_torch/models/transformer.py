@@ -205,9 +205,9 @@ def _accumulate(acc: dict | None, aux: dict | None) -> dict | None:
     return {k: acc[k] + aux[k] for k in acc}
 
 
-def _ffn(p: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, dict | None]:
+def _ffn(p: dict, x: torch.Tensor, cfg: ModelConfig, rows: int | None = None) -> tuple[torch.Tensor, dict | None]:
     if "moe" in p:
-        return moe(p["moe"], x, cfg, capacity_factor=cfg.moe_capacity_factor)
+        return moe(p["moe"], x, cfg, capacity_factor=cfg.moe_capacity_factor, rows=rows)
     if cfg.family == "encdec":
         return mlp(p["mlp"], x), None
     return swiglu(p["mlp"], x), None
@@ -228,12 +228,14 @@ def _attn_block_seq(
     causal: bool = True,
     enc_out: torch.Tensor | None = None,
     cross_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
+    rows: int | None = None,
 ) -> tuple[torch.Tensor, dict | None, dict]:
     """Full-sequence attention block (training, prefill, encoder) through
     the flash kernels at every S.  With ``enc_out`` (or its precomputed
     ``cross_kv``) a non-causal cross-attention follows the self-attention:
-    no RoPE, no qk-norm, Sq != Sk.  Returns (x, moe aux or None, the self
-    K/V for the cache)."""
+    no RoPE, no qk-norm, Sq != Sk.  ``rows``: the real rows of a padded
+    batch (:func:`_pad_batch`), for the moe router.  Returns (x, moe aux or
+    None, the self K/V for the cache)."""
     x = shard_batch(x)
     h = rms_norm(p["ln1"], x, cfg.norm_eps)
     q, k, v = _project_qkv(p["attn"], h, positions, cfg)
@@ -246,7 +248,7 @@ def _attn_block_seq(
         kc, vc = cross_kv if cross_kv is not None else _cross_kv(p, enc_out, cfg)
         co = flash_attention(qc, kc, vc, causal=False)
         x = x + co.reshape(B, S, -1) @ p["cross"]["wo"]["w"]
-    y, aux = _ffn(p, rms_norm(p["ln2"], x, cfg.norm_eps), cfg)
+    y, aux = _ffn(p, rms_norm(p["ln2"], x, cfg.norm_eps), cfg, rows)
     return x + y, aux, {"k": k, "v": v}
 
 
@@ -286,15 +288,43 @@ def _mamba_layer(p_l: dict, h: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Te
     return h + y, caches
 
 
-def _put_states(dst: dict | None, states: dict, *idx: int) -> None:
+def _put_states(dst: dict | None, states: dict, *idx: int, rows: int | None = None) -> None:
     """Write a Mamba2 layer's conv and SSM states into a cache leaf at ``idx``
-    (under a mesh into each rank's shards)."""
+    (under a mesh into each rank's shards, the real rows of a padded batch)."""
     if dst is not None:
         for name in ("conv", "ssm"):
             if is_dtensor(dst[name]):
-                compat.assign(dst[name][idx], states[name])
+                compat.assign(dst[name][idx], _real(states[name], rows))
             else:
                 dst[name][idx] = states[name]
+
+
+def _pad_batch(batch: dict) -> tuple[dict, int | None]:
+    """A train or prefill batch (``tokens``[, ``labels``, ``loss_mask``,
+    ``frontend``]) under a mesh whose rows do not divide the data extent,
+    padded to it with zero rows (:func:`repro_torch.compat.pad_rows`), as
+    the reference's GSPMD pads it, so every activation shards evenly over
+    every data axis; with ``labels`` its ``loss_mask`` leaves the padding
+    out of the loss.  Returns the batch and its real row count, the one
+    number the padding's readers take (the moe router, the cache writes and
+    the logits), or ``None`` where nothing was padded."""
+    mesh, tokens = compat.get_abstract_mesh(), batch["tokens"]
+    if mesh is None or not is_dtensor(tokens):
+        return batch, None
+    n = tokens.shape[0]
+    n_pad = compat.padded_rows(mesh, n)
+    if n_pad == n:
+        return batch, None
+    if "labels" in batch:
+        batch = {**batch, "loss_mask": batch.get("loss_mask", torch.ones_like(batch["labels"]))}
+    return {k: compat.pad_rows(v, n_pad) for k, v in batch.items()}, n
+
+
+def _real(t: torch.Tensor, rows: int | None, dim: int = 0) -> torch.Tensor:
+    """The ``rows`` real rows (along ``dim``) of a padded batch's tensor,
+    each rank keeping its own (:func:`repro_torch.compat.unpad_rows`);
+    ``t`` itself when the batch was not padded."""
+    return t if rows is None else compat.unpad_rows(t, rows, dim)
 
 
 def _embed_inputs(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -351,16 +381,17 @@ def _remat(fn, remat: str):
 
 def _attn_stack(blocks: dict, n: int, cfg: ModelConfig, x: torch.Tensor, remat: str = "none", *,
                 causal: bool = True, enc_out: torch.Tensor | None = None, cross: dict | None = None,
-                cache: dict | None = None) -> tuple[torch.Tensor, dict | None]:
+                cache: dict | None = None, rows: int | None = None) -> tuple[torch.Tensor, dict | None]:
     """``n`` attention blocks over the whole sequence.  ``enc_out`` (its
     cross K/V computed per block) or ``cross`` (stacked per layer, as
     prefill keeps it) adds the encdec cross-attention; ``cache``
-    (``init_cache``'s ``layers``) takes each layer's K/V.  Returns (x, the
-    summed moe aux terms or None)."""
+    (``init_cache``'s ``layers``) takes each layer's K/V, of the ``rows``
+    real rows of a padded batch.  Returns (x, the summed moe aux terms or
+    None)."""
     positions = torch.arange(x.shape[1], device=x.device)
 
     def block(h, p_l, enc, ckv):
-        return _attn_block_seq(p_l, h, cfg, positions, causal=causal, enc_out=enc, cross_kv=ckv)
+        return _attn_block_seq(p_l, h, cfg, positions, causal=causal, enc_out=enc, cross_kv=ckv, rows=rows)
 
     run, acc = _remat(block, remat), None
     for i, p_l in enumerate(_unstack(blocks, n)):
@@ -369,21 +400,21 @@ def _attn_stack(blocks: dict, n: int, cfg: ModelConfig, x: torch.Tensor, remat: 
         acc = _accumulate(acc, aux)
         if cache is not None:
             for name in ("k", "v"):
-                _fill_kv(cache[name][i], kv[name])
+                _fill_kv(cache[name][i], kv[name], rows)
     return x, acc
 
 
 def _ssm_stack(params: dict, cfg: ModelConfig, x: torch.Tensor, remat: str = "none",
-               cache: dict | None = None) -> torch.Tensor:
+               cache: dict | None = None, rows: int | None = None) -> torch.Tensor:
     run = _remat(lambda h, p_l: _mamba_layer(p_l, h, cfg), remat)
     for i, p_l in enumerate(_unstack(params["blocks"], cfg.n_layers)):
         x, states = run(x, p_l)
-        _put_states(cache, states, i)
+        _put_states(cache, states, i, rows=rows)
     return x
 
 
 def _hybrid_stack(params: dict, cfg: ModelConfig, x: torch.Tensor, remat: str = "none",
-                  cache: dict | None = None) -> torch.Tensor:
+                  cache: dict | None = None, rows: int | None = None) -> torch.Tensor:
     """Mamba groups, each followed by the shared attention block, then the
     Mamba tail.  The reference's group-level checkpoint: each group of
     ``period`` Mamba2 layers and the shared block is one remat unit; the
@@ -404,25 +435,26 @@ def _hybrid_stack(params: dict, cfg: ModelConfig, x: torch.Tensor, remat: str = 
         x, states, kv = run(x, p_group)
         if cache is not None:
             for li, c in enumerate(states):
-                _put_states(cache["groups"]["mamba"], c, gi, li)
+                _put_states(cache["groups"]["mamba"], c, gi, li, rows=rows)
             for name in ("k", "v"):
-                _fill_kv(cache["groups"]["attn"][name][gi], kv[name])
+                _fill_kv(cache["groups"]["attn"][name][gi], kv[name], rows)
     if n_tail:
         for ti, p_l in enumerate(_unstack(params["mamba_tail"], n_tail)):
             x, c = _mamba_layer(p_l, x, cfg)
-            _put_states(None if cache is None else cache["tail"], c, ti)
+            _put_states(None if cache is None else cache["tail"], c, ti, rows=rows)
     return x
 
 
 def _decoder(params: dict, cfg: ModelConfig, x: torch.Tensor, remat: str = "none",
-             cache: dict | None = None) -> tuple[torch.Tensor, dict | None]:
-    """The layer stack of every family but encdec; ``cache``: ``init_cache``'s."""
+             cache: dict | None = None, rows: int | None = None) -> tuple[torch.Tensor, dict | None]:
+    """The layer stack of every family but encdec; ``cache``: ``init_cache``'s;
+    ``rows``: the real rows of a padded batch (:func:`_pad_batch`)."""
     if cfg.family in ("dense", "moe", "vlm"):
         return _attn_stack(params["blocks"], cfg.n_layers, cfg, x, remat,
-                           cache=None if cache is None else cache["layers"])
+                           cache=None if cache is None else cache["layers"], rows=rows)
     if cfg.family == "ssm":
-        return _ssm_stack(params, cfg, x, remat, None if cache is None else cache["layers"]), None
-    return _hybrid_stack(params, cfg, x, remat, cache), None
+        return _ssm_stack(params, cfg, x, remat, None if cache is None else cache["layers"], rows), None
+    return _hybrid_stack(params, cfg, x, remat, cache, rows), None
 
 
 def _encode(params: dict, cfg: ModelConfig, frontend_embeds: torch.Tensor, remat: str = "none") -> torch.Tensor:
@@ -459,11 +491,14 @@ def forward_train(
     and the moe terms (each layer's summed, divided by ``n_layers``; zeros
     for families without experts), the total ``ce + 0.01 lb + 0.001 z``;
     encdec returns ``ce_loss`` alone.  ``remat`` is one of
-    :data:`REMAT_POLICIES` (module docstring)."""
+    :data:`REMAT_POLICIES` (module docstring).  Under a mesh a batch that
+    does not divide the data extent is padded to it (:func:`_pad_batch`);
+    the padding enters no loss and no metric."""
+    batch, rows = _pad_batch(batch)
     if cfg.family == "encdec":
         return _encdec_train(params, cfg, batch, remat)
     x = _embed_inputs(params, cfg, batch["tokens"], batch.get("frontend"))
-    x, acc = _decoder(params, cfg, x, remat)
+    x, acc = _decoder(params, cfg, x, remat, rows=rows)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     if cfg.family == "vlm":   # only text positions carry labels
         x = x[:, cfg.frontend_tokens :, :]
@@ -516,16 +551,17 @@ def init_cache(
     return out
 
 
-def _write_slots(dst: torch.Tensor, x: torch.Tensor, start: int) -> None:
+def _write_slots(dst: torch.Tensor, x: torch.Tensor, start: int, rows: int | None = None) -> None:
     """``dst[..., start : start + n, :, :] = x`` for K/V (..., n, KV, D);
-    under a mesh into each rank's shards of the cache."""
+    under a mesh into each rank's shards of the cache, the ``rows`` real
+    rows of a padded batch."""
     if is_dtensor(dst):
-        compat.write_into(dst, x, -3, start)
+        compat.write_into(dst, x, -3, start, rows)
     else:
         dst[..., start : start + x.shape[-3], :, :] = x
 
 
-def _fill_kv(dst: torch.Tensor, x: torch.Tensor) -> None:
+def _fill_kv(dst: torch.Tensor, x: torch.Tensor, rows: int | None = None) -> None:
     """Write prefill K/V (..., S, KV, D) into a zeroed serving cache
     (..., kv_len, KV, D).
 
@@ -538,10 +574,10 @@ def _fill_kv(dst: torch.Tensor, x: torch.Tensor) -> None:
     S, kv_len = x.shape[-3], dst.shape[-3]
     if S > kv_len:   # ring buffer: token t -> slot t % window
         tail, r = x[..., S - kv_len :, :, :], S % kv_len
-        _write_slots(dst, tail[..., : kv_len - r, :, :], r)
-        _write_slots(dst, tail[..., kv_len - r :, :, :], 0)
+        _write_slots(dst, tail[..., : kv_len - r, :, :], r, rows)
+        _write_slots(dst, tail[..., kv_len - r :, :, :], 0, rows)
     else:
-        _write_slots(dst, x, 0)
+        _write_slots(dst, x, 0, rows)
 
 
 @torch.no_grad()
@@ -566,8 +602,14 @@ def forward_prefill(
     ``place_cache`` lays out the fresh :func:`init_cache` before prefill
     fills it (a meshed dry run places it as DTensors,
     :func:`repro_torch.launch.cells.build_cell`); the reference leaves that
-    to GSPMD's propagation."""
+    to GSPMD's propagation.  Under a mesh a batch that does not divide the
+    data extent runs padded to it (:func:`_pad_batch`); the cache and the
+    logits take its real rows."""
     place = place_cache or (lambda c: c)
+    inputs = {"tokens": tokens} if frontend_embeds is None else {"tokens": tokens, "frontend": frontend_embeds}
+    inputs, rows = _pad_batch(inputs)
+    tokens, frontend_embeds = inputs["tokens"], inputs.get("frontend")
+    B = tokens.shape[0] if rows is None else rows
     if cfg.family == "encdec":
         if frontend_embeds is None:
             raise ValueError("encdec family needs frontend_embeds (frame stub)")
@@ -576,15 +618,15 @@ def forward_prefill(
         cross = {"k": torch.stack([k for k, _ in kv]), "v": torch.stack([v for _, v in kv])}
         del kv, enc
         x = embed(params["embed"], tokens).to(_dt(cfg))
-        cache = place(init_cache(cfg, x.shape[0], max_len or x.shape[1], device=x.device))
-        cache["cross"] = cross
-        x, _ = _attn_stack(params["dec_blocks"], cfg.n_layers, cfg, x, cross=cross, cache=cache["layers"])
+        cache = place(init_cache(cfg, B, max_len or x.shape[1], device=x.device))
+        cache["cross"] = {name: _real(t, rows, 1) for name, t in cross.items()}
+        x, _ = _attn_stack(params["dec_blocks"], cfg.n_layers, cfg, x, cross=cross, cache=cache["layers"], rows=rows)
     else:
         x = _embed_inputs(params, cfg, tokens, frontend_embeds)
-        cache = place(init_cache(cfg, x.shape[0], max_len or x.shape[1], device=x.device))
-        x, _ = _decoder(params, cfg, x, cache=cache)
+        cache = place(init_cache(cfg, B, max_len or x.shape[1], device=x.device))
+        x, _ = _decoder(params, cfg, x, cache=cache, rows=rows)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
-    return _unembed(params, cfg, x[:, -1:, :])[:, 0, :], cache
+    return _real(_unembed(params, cfg, x[:, -1:, :])[:, 0, :], rows), cache
 
 
 @torch.no_grad()

@@ -11,8 +11,14 @@ the model code: the MoE dispatch (per data rank and global), attention
 whose KV heads do not divide the model axis (6:3 heads at model 2: each
 rank's query heads read their own KV heads), decode over a cache whose
 sequence axis is sharded (the model axis there, the data axis for a
-batch-1 cache), the Mamba2 block and decode step on their own heads, and
-danube's sliding-window ring past its window.
+batch-1 cache), the Mamba2 block and decode step on their own heads,
+danube's sliding-window ring past its window, and batches that do not
+divide the data axis (three rows, and the batch-1 prefill, on two data
+ranks): they run padded to it, one padded share a rank, as the
+reference's GSPMD pads them, and the padding reaches no result.  Every
+case also checks that each residual stream the model pins
+(``shard_batch``) is ``Shard(0)`` on the data axis, at the padded row
+count.
 
 Tolerances, each with its reason (the moe and family tolerances
 ``ROADMAP.md`` C pins): outputs (loss, logits, every cache leaf) within
@@ -24,6 +30,7 @@ top-k expert ids and each expert's kept token set (top-C) equal.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 from pathlib import Path
@@ -33,7 +40,8 @@ import pytest
 SRC = str(Path(__file__).resolve().parents[1] / "src")
 OUT_TOL, METRIC_TOL, GRAD_TOL = 1e-5, 1e-5, 1e-4
 
-# arch, config changes, mesh (data, model), train (B, S) or None, serve (B, S, decode steps) or None
+# arch, config changes, mesh (data, model) or (pod, data, model), train (B, S) or None, serve (B, S,
+# decode steps) or None
 CASES = {
     "moe": ("granite-moe-3b-a800m", {}, (1, 2), (4, 80), (2, 40, 4)),
     "moe_global_dispatch": ("granite-moe-3b-a800m", {"moe_capacity_factor": 0.5}, (2, 1), (4, 80), None),
@@ -43,27 +51,34 @@ CASES = {
     "danube_ring": ("h2o-danube-1.8b", {}, (1, 2), None, (2, 48, 4)),
     "danube_ring_seq_sharded": ("h2o-danube-1.8b", {"n_heads": 6, "n_kv_heads": 3}, (1, 2), None, (2, 48, 4)),
     "batch1_sequence_parallel": ("qwen3-1.7b", {}, (2, 1), None, (1, 24, 4)),
+    "odd_batch_dense": ("qwen3-1.7b", {}, (2, 1), (3, 32), (3, 24, 4)),
+    "odd_batch_moe_global": ("granite-moe-3b-a800m", {"moe_capacity_factor": 0.5}, (2, 1), (3, 80), None),
+    "odd_batch_moe_drops": ("granite-moe-3b-a800m", {"moe_capacity_factor": 0.5}, (2, 1), (3, 96), None),
+    "odd_batch_pod2_data2": ("granite-moe-3b-a800m", {"moe_capacity_factor": 0.5}, (2, 2, 1), (5, 64), (5, 24, 4)),
 }
 
 _RANK = r'''
-import contextlib, dataclasses, json, sys
+import contextlib, dataclasses, json, math, sys
 import numpy as np, torch, torch.distributed as dist
 rank, store, src, spec = int(sys.argv[1]), sys.argv[2], sys.argv[3], json.loads(sys.argv[4])
+world = math.prod(spec["mesh"])
 torch.set_num_threads(1)
 sys.path.insert(0, src)
-dist.init_process_group("gloo", store=dist.FileStore(store, 2), rank=rank, world_size=2)
+dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank, world_size=world)
 from repro_torch import compat
 from repro_torch.configs import ARCHS, reduce_for_smoke
 from repro_torch.launch.cells import meshed
-from repro_torch.launch.mesh import make_host_mesh
+from torch.distributed.tensor import Replicate, Shard
 from repro_torch.launch.sharding import batch_shardings, cache_shardings, distribute, param_shardings
-from repro_torch.models import moe as moe_mod
+from repro_torch.models import moe as moe_mod, transformer as tr_mod
 from repro_torch.models.transformer import forward_train, init_model
 from repro_torch.serving.serve_step import make_decode_step, make_prefill_step
 from repro_torch.training.tree import tree_leaves, tree_unflatten
 
 cfg = dataclasses.replace(reduce_for_smoke(ARCHS[spec["arch"]]), **spec["changes"])
-mesh = make_host_mesh(*spec["mesh"], device="cpu")
+axes = ("pod", "data", "model")[-len(spec["mesh"]):]
+mesh = compat.make_mesh(tuple(spec["mesh"]), axes)
+data = [Shard(0) if a != "model" else Replicate() for a in axes]
 params = init_model(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
 rng = np.random.default_rng(1)
 full = lambda t: (t.full_tensor() if hasattr(t, "full_tensor") else t).detach().float()
@@ -76,6 +91,15 @@ def spy(x, k):
     picks.append((x.shape[-2], vals.detach().clone(), idx.clone()))
     return vals, idx
 moe_mod._top_k = spy
+
+pinned = set()      # (rows, whether sharded over the data axis) of every residual stream shard_batch pins under the mesh
+shard_batch = tr_mod.shard_batch
+def pin(x):
+    y = shard_batch(x)
+    if hasattr(y, "placements"):
+        pinned.add((y.shape[0], list(y.placements) == data))
+    return y
+tr_mod.shard_batch = pin
 
 rec = {}
 p_dt = distribute(params, param_shardings(params, mesh))
@@ -95,13 +119,19 @@ if spec["train"]:
     rec["metrics"] = max(abs(float(full(metrics_m[k])) - float(metrics[k])) for k in metrics)
     rec["drop_frac"] = float(metrics["moe_drop_frac"])
     rec["grads"] = max(float((full(a) - b).abs().max() / b.abs().max().clamp(min=1e-30)) for a, b in zip(g_m, g_ref))
-    # the top-k of a rank's token rows against the same rows unmeshed; the top-C whole
-    rows = compat.box((B * S,), mesh, compat.batch_placements(mesh, B))
-    lo, n = rows[1][0], rows[0][0]
+    # the top-k of a rank's real token rows (first in its block of a padded
+    # batch) against the same rows unmeshed; the top-C whole, its token
+    # positions mapped to the padded batch's
+    (bl,), (b0,) = compat.box((B,), mesh, data)
+    lo, n = b0 * S, bl * S
+    real = compat.real_row_mask(mesh, B, compat.padded_rows(mesh, B))
+    pos = real.repeat_interleave(S).nonzero()[:, 0]
     same = len(p_m) == len(p_ref)
     for (r_m, v_m, i_m), (r, v, i) in zip(p_m, p_ref):
         if r_m < r:         # a rank's rows of the router's top-k
-            v, i = v[lo : lo + n], i[lo : lo + n]
+            v_m, i_m, v, i = v_m[:n], i_m[:n], v[lo : lo + n], i[lo : lo + n]
+        else:
+            i = pos[i]
         same = same and torch.equal(i_m, i) and torch.allclose(v_m, v, rtol=1e-5, atol=1e-7)
     rec["picks_equal"], rec["n_picks"] = same, len(p_m)
 if spec["serve"]:
@@ -123,15 +153,17 @@ if spec["serve"]:
         outs.append((lg, [full(c) for c in tree_leaves(cache)]))
     rec["logits"] = max(rel(a, b) for a, b in zip(outs[1][0], outs[0][0]))
     rec["cache"] = max(rel(a, b) for a, b in zip(outs[1][1], outs[0][1]))
+rec["pinned"] = sorted(pinned)
 print(json.dumps(rec))
 dist.destroy_process_group()
 '''
 
 
-def _run_two_ranks(tmp_path, spec: dict) -> list[dict]:
+def _run_ranks(tmp_path, spec: dict) -> list[dict]:
     store = str(tmp_path / "store")
     procs = [subprocess.Popen([sys.executable, "-c", _RANK, str(r), store, SRC, json.dumps(spec)],
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in (0, 1)]
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(math.prod(spec["mesh"]))]
     outs = []
     for p in procs:
         try:
@@ -152,7 +184,11 @@ def test_sharded_step_equals_unsharded_step(tmp_path, case):
     unmeshed ones on both ranks."""
     arch, changes, mesh, train, serve = CASES[case]
     spec = {"arch": arch, "changes": changes, "mesh": mesh, "train": train, "serve": serve}
-    for rec in _run_two_ranks(tmp_path, spec):
+    ext = math.prod(mesh[:-1])      # the data extent
+    padded = {-(-run[0] // ext) * ext for run in (train, serve) if run}
+    for rec in _run_ranks(tmp_path, spec):
+        # every pinned residual stream: Shard(0) on the data axes, at the padded row count
+        assert rec["pinned"] and {tuple(p) for p in rec["pinned"]} == {(b, True) for b in padded}, rec
         if train:
             assert rec["loss"] <= OUT_TOL and rec["metrics"] <= METRIC_TOL, rec
             assert rec["grads"] <= GRAD_TOL, rec
@@ -161,10 +197,14 @@ def test_sharded_step_equals_unsharded_step(tmp_path, case):
             assert rec["logits"] <= OUT_TOL and rec["cache"] <= OUT_TOL, rec
         if case.startswith("moe"):
             assert rec["n_picks"] == 2 * cfg_layers(arch), rec   # top-k and top-C in each layer
-        if case == "moe_global_dispatch":
+        if case in ("moe_global_dispatch", "odd_batch_moe_drops", "odd_batch_pod2_data2"):
             # capacity 0.5 drops tokens: the kept sets are a real top-C over
-            # all 320 tokens, which a per-rank top-C over 160 would not match
+            # all 320 (288) tokens, which a per-rank top-C would not match
             assert rec["drop_frac"] > 0.1, rec
+        if case == "odd_batch_moe_global":
+            # a group of 240 real tokens keeps every one; counted over the
+            # 320 padded positions, capacity would drop some
+            assert rec["drop_frac"] == 0.0, rec
 
 
 def cfg_layers(arch: str) -> int:
