@@ -56,14 +56,16 @@ then, through the same kernel, the model zoo and int8 head serving:
    weight draws), overlap_3x3 (N = 27), binned_lowpower, fpca_cnn and
    fpca_detect serves a seeded mix of 256 requests (10% with a block mask)
    with cross-config batching off and on: one fpca launch per group or
-   merged group, every result against its config's own handle bit for bit,
-   merged against unmerged (the merged C = 32 group takes the SIMT design:
-   bit for bit against SIMT launches, within the fpca limit against the
-   tensor-core ones); then 16 fpca_cnn cameras (12 moving) and two fan-out
-   cameras (C = 16: per-config gates; an event tap) on a ``StreamServer``,
-   64 ticks at depth 1 and 2, each camera against its own ``stream()`` bit
-   for bit, ms per tick and the busy share; the stacked C = 16 launch
-   against its plain version and timed beside two C = 8 launches; and the
+   merged group, every one on the tensor-core design (the merged C = 32
+   group's too), every result against its config's own handle bit for bit,
+   merged against unmerged bit for bit; then 16 fpca_cnn cameras (12
+   moving) and two fan-out cameras (C = 16: per-config gates; an event tap)
+   on a ``StreamServer``, 64 ticks at depth 1 and 2, each camera against
+   its own ``stream()`` bit for bit, the fan-out's per-config results
+   against each config served alone bit for bit, ms per tick and the busy
+   share; the stacked C = 16 and C = 32 launches against their plain
+   version and their configs' own C = 8 launches (bit for bit), timed
+   beside those, the SIMT design and their bound; and the
    same cameras under a ``FleetController`` (budget 2.4, floor 0.02,
    target 0.15), 64 ticks through ``run`` and 64 through ``serve_segments``
    (K = 32) interleaved on one shared graph, each segment against the
@@ -103,8 +105,8 @@ then, through the same kernel, the model zoo and int8 head serving:
    region_skipping, serve_frontend, serve_fpca_cnn (with ``--weights``, the
    bundle 7e exported, and with ``--precision int8``), stream_video and
    adaptive_stream each reach the fpca kernel, every launch on the
-   tensor-core design but adaptive_stream's channel-stacked C = 12 ones
-   (SIMT); serve_lm at its smoke default launches the flash kernel once a
+   tensor-core design (adaptive_stream's channel-stacked C = 12 ones too);
+   serve_lm at its smoke default launches the flash kernel once a
    layer; prints each run's seconds and launches; then runs each twin
    again on the host (``--device cpu``: the plain path, on the bucket
    model the card run fitted) and holds the card's numbers against the
@@ -652,7 +654,7 @@ def main() -> None:
     planes = weight_planes(w_pos.T, w_neg.T, tables)
     patches = extract_windows(frames[256], spec).reshape(-1, spec.n_active_pixels).contiguous()
     bn_dev = bn.to(dev)
-    check(fpca_kernel.design(patches, tables, prog.out_channels) == "wgmma",
+    check(fpca_kernel.design(patches, tables) == "wgmma",
           "the served patch matrix must take the fpca tensor-core design")
     got = fpca_conv_cuda(patches, planes, tables, bn_dev)
     want = fpca_conv_basis(patches, planes, tables, bn_dev)
@@ -789,6 +791,11 @@ def main() -> None:
     twins = twins_phase(dev, export=fpca_entry["fpca_train"].pop("export_bundle"))
     by_path["example twins"] = sum(t["fpca_launches"] for t in twins)
     fpca_entry["launches"] = sum(by_path.values())
+    fpca_entry["designs"] = {d: sum(v[d] for v in MAIN_PATH_DESIGNS.values()) for d in fpca_kernel.DESIGNS}
+    fpca_entry["designs_by_path"] = MAIN_PATH_DESIGNS
+    check(fpca_entry["designs"]["simt"] == 0 and fpca_entry["designs"]["wgmma"] == fpca_entry["launches"],
+          f"fpca launches on the main paths by design {fpca_entry['designs']}, {fpca_entry['launches']} in all: "
+          "every one must take the tensor-core design")
     fpca_entry["example_twins"] = twins
     gc.collect()
     torch.cuda.empty_cache()
@@ -932,6 +939,20 @@ def _reset_fpca_counts() -> None:
     fpca_conv_cuda.designs = dict.fromkeys(fpca_conv_cuda.designs, 0)
 
 
+# each main path's fpca launches by design, read just after the path ran
+# (the kernels line sums them)
+MAIN_PATH_DESIGNS: dict = {}
+
+
+def main_path_designs(path: str, designs: dict) -> None:
+    """Record a main path's fpca launches by design; none may take the SIMT
+    design (every served shape has N <= 80 under the default bucket model,
+    whatever its channel count)."""
+    check(designs["simt"] == 0, f"{path}: fpca launches by design {designs}, every one must take the tensor-core "
+          "design")
+    MAIN_PATH_DESIGNS[path] = dict(designs)
+
+
 def _raw(out) -> torch.Tensor:
     """A run's raw head output: the logits, or a detection map re-joined."""
     return torch.cat([out.scores, out.boxes], -1) if isinstance(out, fpca.Detections) else out
@@ -961,6 +982,7 @@ def serve_requests(label: str, model, requests: list, check_out) -> tuple[int, d
     check(launches >= 1, f"{label}: the path never launched fpca_conv_cuda")
     check(designs["wgmma"] == launches, f"{label}: fpca launches by design {designs}, every one must take the "
           "tensor-core design")
+    main_path_designs(label, designs)
     print(f"{label}: {len(requests)} requests, fpca_conv_cuda launches {launches} by design {designs}")
     latency = {}
     for req, x, mask in requests:
@@ -1203,6 +1225,7 @@ def stream_phase(dev: torch.device, smi: str, bucket_model) -> dict:
         check(launched == int((kept > 0).sum()) and designs["wgmma"] == launched,
               f"{label}: {launched} fpca launches by design {designs} for {int((kept > 0).sum())} ticks that keep windows")
         out["launches"][label] = launched
+        main_path_designs(label, designs)
 
         # -- segments: the first pass captures, the second replays ----------------
         t0 = time.perf_counter()
@@ -1224,6 +1247,7 @@ def stream_phase(dev: torch.device, smi: str, bucket_model) -> dict:
         check(replay == {"wgmma": n, "simt": 0},
               f"{arch}: {replay} fpca kernels in {STREAM_SEGMENTS} replays, expected one tensor-core launch a tick ({n})")
         out["launches"][f"{arch} segment replays"] = replay["wgmma"]
+        main_path_designs(f"{arch} segment replays", replay)
         for a, b in zip(segs, holder["segs"]):
             check(torch.equal(a.counts, b.counts) and torch.equal(a.logits, b.logits), f"{arch}: replays differ")
         for s, seg in enumerate(segs):
@@ -1342,20 +1366,6 @@ def _stream_cnn_checks(dev, smi, model, prog, kernel, bn, head, bucket_model, fr
 # ---------------------------------------------------------------------------
 
 
-@contextlib.contextmanager
-def simt_only():
-    """Every fpca launch inside takes the SIMT design (the check a stacked
-    launch of more than TC_MAX_CHANNELS channels is held to: the two designs
-    round differently, so a stacked SIMT launch equals solo launches bit for
-    bit only when those take the SIMT design too)."""
-    saved = fpca_kernel.TC_MAX_CHANNELS
-    fpca_kernel.TC_MAX_CHANNELS = 0
-    try:
-        yield
-    finally:
-        fpca_kernel.TC_MAX_CHANNELS = saved
-
-
 def _weights(prog, seed: int, dev: torch.device) -> tuple:
     """Seeded NVM planes and BN offsets (and head parameters for a model)."""
     model = isinstance(prog, fpca.FPCAModelProgram)
@@ -1421,12 +1431,11 @@ def pipeline_mix(dev: torch.device, configs: list) -> tuple[torch.Tensor, list]:
 def pipeline_phase(dev: torch.device, smi: str, models: dict) -> dict:
     """Serve a seeded mix of PIPE_REQUESTS requests over the six registered
     names through ``FPCAPipeline.serve``, with cross-config batching off and
-    on; check launches and designs per group, every result against its
+    on; check launches and designs per group (every one on the tensor-core
+    design, the merged C = 32 group's too), every result against its
     config's own ``fpca.compile`` handle on the same group batch (bit for
-    bit), merged against unmerged (bit for bit where the designs agree; the
-    merged group's stacked SIMT launch against unmerged SIMT launches bit
-    for bit and against the served tensor-core ones within the fpca limit);
-    time serve (median of PIPE_TIMED)."""
+    bit), merged against unmerged (bit for bit); time serve (median of
+    PIPE_TIMED)."""
     configs = pipeline_configs(dev)
     by_name = {c[0]: c for c in configs}
     frames, reqs = pipeline_mix(dev, configs)
@@ -1442,7 +1451,7 @@ def pipeline_phase(dev: torch.device, smi: str, models: dict) -> dict:
         torch.cuda.synchronize()
         launched, designs = fpca_conv_cuda.launches, dict(fpca_conv_cuda.designs)
         n_launches = 3 if cross else len(groups)
-        want_designs = {"wgmma": 2, "simt": 1} if cross else {"wgmma": len(groups), "simt": 0}
+        want_designs = {"wgmma": n_launches, "simt": 0}
         check(launched == n_launches and designs == want_designs,
               f"pipeline (cross_config_batching={cross}): {launched} fpca launches by design {designs}, expected "
               f"one a group or merged group, {want_designs}")
@@ -1450,6 +1459,7 @@ def pipeline_phase(dev: torch.device, smi: str, models: dict) -> dict:
         out[f"serve_ms_{label}"] = host_ms(lambda: pipe.serve(reqs), runs=PIPE_TIMED, warmup=0)
         out[f"designs_{label}"] = designs
         out["launches"][f"pipeline serve ({label})"] = launched
+        main_path_designs(f"pipeline serve ({label})", designs)
         served[cross] = results
         print(f"pipeline serve ({label}) on {smi}: {PIPE_REQUESTS} requests in {len(groups)} config groups, "
               f"{launched} fpca launches by design {designs}; stats {pipe.stats.as_dict()}; "
@@ -1473,29 +1483,12 @@ def pipeline_phase(dev: torch.device, smi: str, models: dict) -> dict:
             print(f"pipeline (unmerged): all {PIPE_REQUESTS} results == their configs' own fpca.compile handles "
                   "on the same group batches, bit for bit")
     # merged against unmerged
-    pipe = make_pipeline(dev, models, configs)
-    merged_names = {n for n, c in by_name.items() if c[1].spec == fpca_cnn.FRONTEND_SPEC}
-    with simt_only():
-        simt_results = pipe.serve(reqs)
-    merged_counts, unmerged_counts = [], []
+    merged_names = sorted(n for n, c in by_name.items() if c[1].spec == fpca_cnn.FRONTEND_SPEC)
     for i, r in enumerate(reqs):
-        a, b = _host_out(served[True][i]), _host_out(served[False][i])
-        if r.config in merged_names:
-            check(torch.equal(a, _host_out(simt_results[i])),
-                  f"pipeline request {i} ({r.config}): merged differs from unmerged SIMT serving")
-            if not isinstance(by_name[r.config][1], fpca.FPCAModelProgram):
-                merged_counts.append(a)
-                unmerged_counts.append(b)
-        else:
-            check(torch.equal(a, b), f"pipeline request {i} ({r.config}): merged differs from unmerged")
-    err, flips = count_diff(torch.stack(merged_counts), torch.stack(unmerged_counts))
-    check(err <= COUNT_TOL and flips < FLIP_TOL,
-          f"pipeline: merged (SIMT) counts {err} off the unmerged tensor-core ones, flip share {flips}")
-    out["merged_vs_unmerged_max_err"], out["merged_vs_unmerged_flip_share"] = err, flips
-    print(f"pipeline merged == unmerged bit for bit for overlap_3x3 and binned_lowpower; the merged group "
-          f"({sorted(merged_names)}, C = 32, SIMT design) == unmerged SIMT serving bit for bit, and its counts "
-          f"vs the unmerged tensor-core ones: max|Δcount| {err}, flip share {flips:.3e} (fpca limit "
-          f"{COUNT_TOL}, {FLIP_TOL})")
+        check(torch.equal(_host_out(served[True][i]), _host_out(served[False][i])),
+              f"pipeline request {i} ({r.config}): merged differs from unmerged")
+    print(f"pipeline: merged == unmerged bit for bit for all {PIPE_REQUESTS} requests, the merged group "
+          f"({merged_names}, C = 32, one tensor-core launch) included")
     return out
 
 
@@ -1517,6 +1510,8 @@ def camera_frames(n_ticks: int) -> dict:
 
 
 FAN = ("dense_5x5", "dense_5x5_b")
+# the configs on the fpca_cnn frontend spec: the merged pipeline group (C = 32)
+MERGED = ("dense_5x5", "dense_5x5_b", "fpca_cnn", "fpca_detect")
 
 
 def attach_cameras(target, server) -> None:
@@ -1566,9 +1561,9 @@ def server_phase(dev: torch.device, smi: str, models: dict, cams: dict) -> dict:
     by part), each under the profiler once more for the busy share; each
     fpca_cnn camera against its own handle's ``stream()`` bit for bit, the
     fan-out's per-config results over FAN_SOLO_TICKS ticks against each
-    config served alone (SIMT: bit for bit; tensor-core: within the fpca
-    limit); launches per tick per group; the gate's batched call against
-    the solo one on the card."""
+    config served alone, bit for bit (the stacked C = 16 launch and the
+    solo C = 8 ones all on the tensor-core design); launches per tick per
+    group; the gate's batched call against the solo one on the card."""
     from repro_torch.serving import StreamServer
 
     configs = pipeline_configs(dev)
@@ -1602,6 +1597,7 @@ def server_phase(dev: torch.device, smi: str, models: dict, cams: dict) -> dict:
               f"for {len(ticks)} ticks of 2 config groups")
         runs[depth] = results
         out["launches"][f"server depth {depth}"] = launched
+        main_path_designs(f"server depth {depth}", designs)
         step(f"depth {depth}")
         # the device's busy share: device time of the same ticks on a fresh
         # server under the profiler over the wall time of the unprofiled run
@@ -1628,7 +1624,7 @@ def server_phase(dev: torch.device, smi: str, models: dict, cams: dict) -> dict:
         print(f"server depth {depth} on {smi}: {len(ticks)} ticks of {n_streams} streams, {wall / len(ticks):.3f} ms "
               f"per tick, {wall / len(ticks) / n_streams:.4f} ms per stream-tick (host clock); device "
               f"{device_ms / len(ticks):.3f} ms per tick, busy {device_ms / wall:.1%}; fpca launches {launched} "
-              f"by design {designs} (the fpca_cnn group on wgmma, the C = 16 fan-out group on SIMT)")
+              f"by design {designs} (the fpca_cnn group and the C = 16 fan-out group, all on wgmma)")
         for e in sorted(events, key=lambda e: e.device_time_total, reverse=True)[:6]:
             print(f"  {e.key[:60]:60s} {e.device_time_total / 1e3 / len(ticks):.4f} ms/tick x{e.count // len(ticks)}")
     _same_results(runs[2], runs[1], "server depth 2 vs depth 1")
@@ -1649,35 +1645,24 @@ def server_phase(dev: torch.device, smi: str, models: dict, cams: dict) -> dict:
     step("solo stream()")
     # the fan-out's per-config results against each config served alone
     solo_ticks = range(FAN_SOLO_TICKS)
-    worst, fan_counts, solo_counts = 0.0, [], []
-    for design_ctx, exact in ((simt_only, True), (contextlib.nullcontext, False)):
-        for name in FAN:
-            with design_ctx():
-                srv = StreamServer(pipe)
-                srv.add_stream("fan", name)
-                srv.add_stream("fan_ev", name)
-                solo, _ = _run_ticks(srv, {k: cams[k] for k in ("fan", "fan_ev")}, solo_ticks)
-            mine = [r for r in runs[2] if r.stream_id in ("fan", "fan_ev") and r.config == name
-                    and r.frame_idx < len(solo_ticks)]
-            if exact:
-                for a, b in zip(mine, solo):
-                    b.events = a.events
-                _same_results(mine, solo, f"fan-out {name} vs {name} alone (SIMT)")
-            else:
-                check(len(mine) == len(solo), f"fan-out {name}: {len(mine)} results against {len(solo)} alone")
-                fan_counts += [torch.as_tensor(r.counts) for r in mine]
-                solo_counts += [torch.as_tensor(r.counts) for r in solo]
-                check(all(bool((a.block_mask == b.block_mask).all()) for a, b in zip(mine, solo)),
-                      f"fan-out {name}: masks differ from {name} alone")
-    worst, flips = count_diff(torch.stack(fan_counts), torch.stack(solo_counts))
-    check(worst <= COUNT_TOL and flips < FLIP_TOL,
-          f"fan-out: {worst} counts off the tensor-core solo launches, flip share {flips}")
-    out["fanout_vs_wgmma_solo_max_err"], out["fanout_vs_wgmma_solo_flip_share"] = worst, flips
+    _reset_fpca_counts()
+    for name in FAN:
+        srv = StreamServer(pipe)
+        srv.add_stream("fan", name)
+        srv.add_stream("fan_ev", name)
+        solo, _ = _run_ticks(srv, {k: cams[k] for k in ("fan", "fan_ev")}, solo_ticks)
+        mine = [r for r in runs[2] if r.stream_id in ("fan", "fan_ev") and r.config == name
+                and r.frame_idx < len(solo_ticks)]
+        for a, b in zip(mine, solo):
+            b.events = a.events
+        _same_results(mine, solo, f"fan-out {name} vs {name} alone")
+    solo_designs = dict(fpca_conv_cuda.designs)
+    check(solo_designs["simt"] == 0 and solo_designs["wgmma"] > 0,
+          f"fan-out solos: fpca launches by design {solo_designs}, every one must take the tensor-core design")
     step("fan-out solos")
     print(f"server: the {FLEET_CAMERAS} fpca_cnn cameras == their own handle's stream() bit for bit (counts, masks, "
           f"logits); depth 1 == depth 2 bit for bit; over {len(solo_ticks)} ticks the fan-out's per-config results "
-          f"== each config alone on SIMT bit for bit, and {worst} counts at most off the tensor-core solo launches, "
-          f"flip share {flips:.3e}")
+          f"(one C = 16 tensor-core launch a tick) == each config served alone ({solo_designs}) bit for bit")
     # the gate's batched call against the solo one, on the card
     from repro_torch.core import gating
 
@@ -1737,43 +1722,58 @@ def split_host_time(pipe, server) -> dict:
 
 
 def stacked_launch_check(dev: torch.device, smi: str, bucket_model, cams: dict) -> dict:
-    """The fan-out's stacked C = 16 launch (SIMT design) against its plain
-    version, and timed beside two C = 8 tensor-core launches of the same
-    windows, at the windows of 2, 16 and 256 frames."""
+    """The channel-stacked launches of the serving paths, on the tensor-core
+    design: the fan-out's C = 16 (FAN) at the windows of 2, 16 and 256
+    frames, and the merged pipeline group's C = 32 (MERGED) at 256 frames
+    (M = 147,456).  Each stack against its plain version within the fpca
+    limit and each config's channels against that config's own C = 8 launch
+    bit for bit; timed beside the SIMT design on the same stack, the
+    configs' own C = 8 launches and the plain version, with its bound at
+    that C (``fpca_bound_ms``)."""
     configs = {c[0]: c for c in pipeline_configs(dev)}
     spec = fpca_cnn.FRONTEND_SPEC
     tables = conv_tables(bucket_model, fpca.ADCConfig(), spec.n_active_pixels, dev)
-    planes = {}
-    for name in FAN:
-        w_pos, w_neg = encode_weights(configs[name][2].to(dev), spec, fpca.WeightEncoding())
-        planes[name] = (weight_planes(w_pos.T, w_neg.T, tables), configs[name][3].to(dev))
-    kernel = torch.cat([configs[n][2] for n in FAN]).to(dev)
-    w_pos, w_neg = encode_weights(kernel, spec, fpca.WeightEncoding())
-    stacked = weight_planes(w_pos.T, w_neg.T, tables)
-    bn = torch.cat([configs[n][3] for n in FAN]).to(dev)
+
+    def planes_of(names: tuple) -> tuple:
+        w_pos, w_neg = encode_weights(torch.cat([configs[n][2] for n in names]).to(dev), spec, fpca.WeightEncoding())
+        return weight_planes(w_pos.T, w_neg.T, tables), torch.cat([configs[n][3] for n in names]).to(dev)
+
+    solo = {n: planes_of((n,)) for n in MERGED}
+    stacks = {16: (FAN, planes_of(FAN)), 32: (MERGED, planes_of(MERGED))}
     frames = torch.as_tensor(np.concatenate([f[:16] for f in cams.values()]), device=dev)
     out = {}
     for b in (2, 16, 256):
         p = extract_windows(frames[:b], spec).reshape(-1, spec.n_active_pixels).contiguous()
-        check(fpca_kernel.design(p, tables, 16) == "simt" and fpca_kernel.design(p, tables, 8) == "wgmma",
-              "the stacked launch must take SIMT and each half wgmma")
-        got = fpca_conv_cuda(p, stacked, tables, bn)
-        want = fpca_conv_basis(p, stacked, tables, bn)
-        halves = [fpca_conv_cuda(p, planes[n][0], tables, planes[n][1]) for n in FAN]
-        torch.cuda.synchronize()
-        err, flips = count_diff(got, want)
-        err_h, _ = count_diff(got, torch.cat(halves, -1))
-        check(err <= COUNT_TOL and flips < FLIP_TOL, f"stacked C = 16 launch at M={p.shape[0]}: {err} counts, "
-              f"flips {flips} off its plain version")
-        check(err_h <= COUNT_TOL, f"stacked C = 16 launch at M={p.shape[0]}: {err_h} counts off the two wgmma launches")
-        simt_ms = time_cuda(lambda: fpca_conv_cuda(p, stacked, tables, bn))
-        two_ms = time_cuda(lambda: [fpca_conv_cuda(p, planes[n][0], tables, planes[n][1]) for n in FAN])
-        plain_ms = time_cuda(lambda: fpca_conv_basis(p, stacked, tables, bn))
-        out[int(p.shape[0])] = {"simt_stacked_ms": simt_ms, "two_wgmma_ms": two_ms, "plain_ms": plain_ms,
-                                "max_abs_err": err, "flip_share": flips, "vs_two_wgmma_max_err": err_h}
-        print(f"stacked C = 16 launch at M={p.shape[0]} ({b} frames) on {smi}: SIMT {simt_ms:.4f} ms, two C = 8 "
-              f"tensor-core launches {two_ms:.4f} ms, plain {plain_ms:.4f} ms; vs plain max|Δcount| {err}, flip "
-              f"share {flips:.3e}; vs the two tensor-core launches max|Δcount| {err_h}")
+        M, N = p.shape
+        check(fpca_kernel.design(p, tables) == "wgmma", "the stacked launches must take the tensor-core design")
+        for c, (names, (planes, bn)) in stacks.items():
+            if c == 32 and b != 256:
+                continue
+            got = fpca_conv_cuda(p, planes, tables, bn)
+            want = fpca_conv_basis(p, planes, tables, bn)
+            own = torch.cat([fpca_conv_cuda(p, solo[n][0], tables, solo[n][1]) for n in names], -1)
+            torch.cuda.synchronize()
+            err, flips = count_diff(got, want)
+            check(err <= COUNT_TOL and flips < FLIP_TOL, f"stacked C = {c} launch at M={M}: {err} counts, "
+                  f"flips {flips} off its plain version")
+            check(torch.equal(got, own), f"stacked C = {c} launch at M={M}: differs from its configs' own C = 8 "
+                  "launches")
+            ms = time_cuda(lambda: fpca_conv_cuda(p, planes, tables, bn))
+            simt_ms = time_cuda(lambda: simt_fpca(p, planes, tables, bn))
+            own_ms = time_cuda(lambda: [fpca_conv_cuda(p, solo[n][0], tables, solo[n][1]) for n in names])
+            plain_ms = time_cuda(lambda: fpca_conv_basis(p, planes, tables, bn))
+            bound, parts, bytes_moved, _ = fpca_bound_ms(M, N, c, planes["aw"].shape[1], bucket_model.n_buckets)
+            out[f"C={c} M={M}"] = {
+                "ms": ms, "simt_ms": simt_ms, "own_c8_ms": own_ms, "plain_ms": plain_ms, "bound_ms": bound,
+                "bound_by": "bytes" if parts["bytes"] >= bound else "operations", "bound_parts_ms": parts,
+                "max_abs_err": err, "flip_share": flips, "card": smi,
+            }
+            print(f"stacked C = {c} launch at M={M} ({b} frames) on {smi}: tensor-core design {ms:.4f} ms, SIMT "
+                  f"design {simt_ms:.4f} ms, the {len(names)} configs' own C = 8 launches {own_ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms; bound {bound:.4f} ms ({bytes_moved / 1e6:.1f} MB, "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+                  + f"), {100 * bound / ms:.1f}% of it; vs plain max|Δcount| {err}, flip share {flips:.3e}; == the "
+                  "configs' own launches bit for bit")
     return out
 
 
@@ -1817,6 +1817,7 @@ def fleet_phase(dev: torch.device, smi: str, models: dict, cams: dict) -> dict:
           "of 2 config groups")
     check(len(results) == FLEET_TICKS * (FLEET_CAMERAS + 2 * len(FAN)), f"fleet run: {len(results)} results")
     out["launches"]["fleet run"] = launched
+    main_path_designs("fleet run", designs)
     out["run_ms_per_tick"] = wall / FLEET_TICKS
     alloc = {labels["stream"]: value for name, _k, labels, value in telemetry.registry().collect()
              if name == "fpca_fleet_allocation" and labels.get("stream") in server.sessions}
@@ -1871,6 +1872,7 @@ def fleet_phase(dev: torch.device, smi: str, models: dict, cams: dict) -> dict:
           f"the wrapper counted {fpca_conv_cuda.launches}, expected one replay of {FLEET_SEGMENT} tensor-core "
           f"kernels a segment and a warm-up and a capture of {FLEET_SEGMENT} ticks a new graph")
     out["launches"]["fleet segments"] = on_card["wgmma"] + on_card["simt"]
+    main_path_designs("fleet segments", on_card)
     out["segment_graphs_captured"] = new_graphs
     out["segment_device_ms_per_stream_tick"] = sum(e.device_time_total for e in events) / 1e3 / seg_ticks
     assert_reconciled(pipe, server)
@@ -1988,6 +1990,7 @@ def sharded_serving_phase(dev: torch.device, smi: str, models: dict, cams: dict,
     check(n_m == n_p and d_m == d_p and n_m > 0,
           f"sharded fleet: {n_m} fpca launches {d_m} with the mesh, {n_p} {d_p} without")
     out["launches"]["sharded fleet (tests/test_fleet.py)"] = n_m
+    main_path_designs("sharded fleet (tests/test_fleet.py)", d_m)
     print(f"sharded fleet ({SHARD_FLEET_CAMERAS} cameras, {SHARD_FLEET_TICKS} ticks) on a one-rank mesh == "
           f"unsharded bit for bit (counts, masks, kept windows, allocations); fpca launches {n_m} {d_m} both ways")
     step("fleet")
@@ -2018,6 +2021,8 @@ def sharded_serving_phase(dev: torch.device, smi: str, models: dict, cams: dict,
     check(pn_m == pn_p and pd_m == pd_p, f"sharded pipeline: fpca launches {pn_m} {pd_m} against {pn_p} {pd_p}")
     out["launches"]["sharded server"] = n_m
     out["launches"]["sharded pipeline serve"] = pn_m
+    main_path_designs("sharded server", d_m)
+    main_path_designs("sharded pipeline serve", pd_m)
     out["server_ms_per_tick"] = {"mesh": wall_m / len(ticks), "no mesh": wall_p / len(ticks)}
     print(f"sharded server ({len(cams)} cameras, {len(ticks)} ticks) and pipeline ({PIPE_REQUESTS} requests) on a "
           f"one-rank mesh == unsharded bit for bit; fpca launches {n_m} {d_m} / {pn_m} {pd_m} both ways; "
@@ -2095,6 +2100,7 @@ def fpca_cell_phase(dev: torch.device, smi: str, bucket_model, mesh) -> dict:
             "tail": {"max_abs_err": errs["tail"][0], "flip_share": errs["tail"][1]},
         }
         out["launches"][f"fpca cell {name}"] = launched
+        main_path_designs(f"fpca cell {name}", designs)
         print(f"fpca cell {name} ({shape.global_batch} frames of {shape.sensor}x{shape.sensor}x3, M = {M:,} windows, "
               f"one launch) on {smi}: step {step_ms:.2f} ms (host clock, median of 10), device {device_ms:.2f} ms, "
               f"busy {device_ms / step_ms:.1%}, {shape.global_batch / step_ms * 1e3:.0f} frames/s; kernel "
@@ -2322,6 +2328,7 @@ def fpca_train_phase(dev: torch.device, smi: str, bucket_model) -> dict:
     check(bool(((logits - want_logits).abs() <= bound).all()), "the compiled export's logits leave the bound")
     launches, designs = fpca_conv_cuda.launches, dict(fpca_conv_cuda.designs)
     check(designs["wgmma"] == launches, f"fpca training path launches by design {designs}: every one on wgmma")
+    main_path_designs("fpca_train", designs)
     print(f"fpca training path: fpca_conv_cuda launches {launches} by design {designs} (0 in training, "
           f"{n_batches} deploying, 3 for the export)")
     step("export")
@@ -2332,7 +2339,7 @@ def fpca_train_phase(dev: torch.device, smi: str, bucket_model) -> dict:
     tables = conv_tables(bucket_model, adc, spec.n_active_pixels, dev)
     planes = weight_planes(w_pos.T, w_neg.T, tables)
     patches = extract_windows(x, spec).reshape(-1, spec.n_active_pixels).contiguous()
-    check(fpca_kernel.design(patches, tables, spec.out_channels) == "wgmma",
+    check(fpca_kernel.design(patches, tables) == "wgmma",
           "the deployed patch matrix must take the fpca tensor-core design")
     got_c = fpca_conv_cuda(patches, planes, tables, bn)
     want_c = fpca_conv_basis(patches, planes, tables, bn)
@@ -2401,10 +2408,10 @@ def fpca_train_phase(dev: torch.device, smi: str, bucket_model) -> dict:
 
 def _twin_checks(name: str, res: dict, fpca_launches: int, designs: dict, flash: int) -> None:
     """What each twin must show on the card: twins 2-6 reach the fpca
-    kernel, every launch on the tensor-core design but adaptive_stream's
-    channel-stacked C = 12 ones (SIMT takes more than 8 channels);
-    quickstart runs the oracle and no kernel; serve_lm launches the flash
-    kernel once per layer in its prefill."""
+    kernel, every launch on the tensor-core design, adaptive_stream's
+    channel-stacked C = 12 ones (8 + 4) too; quickstart runs the oracle and
+    no kernel; serve_lm launches the flash kernel once per layer in its
+    prefill."""
     if name == "quickstart":
         check(fpca_launches == 0, f"quickstart launched the fpca kernel {fpca_launches} times")
         check(res["max_err"] < 0.03 and np.isfinite(res["counts"]).all(), "quickstart: model error or counts")
@@ -2415,7 +2422,7 @@ def _twin_checks(name: str, res: dict, fpca_launches: int, designs: dict, flash:
         return
     check(fpca_launches >= 1, f"{name}: the twin never launched fpca_conv_cuda")
     if name == "adaptive_stream":
-        check(designs["simt"] == fpca_launches == res["fanout_batches"],
+        check(designs["wgmma"] == fpca_launches == res["fanout_batches"],
               f"adaptive_stream: {fpca_launches} launches by design {designs}, {res['fanout_batches']} stacked calls")
         return
     check(designs["wgmma"] == fpca_launches, f"{name}: fpca launches by design {designs}, every one must take the "
@@ -2622,6 +2629,7 @@ def twins_phase(dev: torch.device, export: dict) -> list[dict]:
             print(f"example twin {label}: {seconds:.2f} s, fpca_conv_cuda launches {launches} by design {designs}, "
                   f"flash_attention_cuda launches {flash}")
             _twin_checks(name, res, launches, designs, flash)
+            main_path_designs(f"example twin {label}", designs)
 
             t0 = time.perf_counter()
             if name == "serve_lm":

@@ -15,8 +15,8 @@ The pipeline's sticky row buckets (``bucket_patience``) ride out the
 bucket flapping that keyframes and busy ticks would otherwise cause, and
 the camera is fanned out to TWO programmed configurations (an "edges" and
 a "blobs" kernel bank) served by ONE channel-stacked kernel call per tick
-(12 channels: on the card the kernel's SIMT design, which takes more than
-8 channels).
+(12 channels: on the card the kernel's tensor-core design in two channel
+blocks, each config's counts those of its own launch).
 
 The whole run serves under a live telemetry session
 (``telemetry.enable``): every serve tick is a traced span, every servo

@@ -22,12 +22,16 @@ count, and every slot is real.
 The kernel has two designs in the one source, chosen by :func:`design`:
 ``"wgmma"`` (the three dot products on bf16 tensor cores, every f32 operand
 split into three bf16 parts and each product run as six passes; a
-persistent grid walking 128-row tiles) for at most 80 pixel slots and 8
-channels under the default bucket model (5 buckets, 15 f_avg terms) with a
-16-byte-aligned patch matrix, ``"simt"`` (f32 FMAs on CUDA cores) for
-everything else.  The choice is made before the launch, never after a
-failure; a failed launch raises.  Beside ``.launches`` the wrapper counts
-its launches per design in ``.designs``.
+persistent grid walking 128-row tiles, one row of blocks per 8 channels)
+for at most 80 pixel slots under the default bucket model (5 buckets, 15
+f_avg terms), ``"simt"`` (f32 FMAs on CUDA cores) for everything else.
+Only the pixel count and the bucket model decide: a channel-stacked launch
+of several configs takes the design each config's launch alone takes, and
+gives each config's channels the same counts bit for bit.  A patch matrix
+that is not 16-byte aligned is copied once to a fresh buffer (the
+tensor-core design's tiles come in by 16-byte copies).  The choice is made
+before the launch, never after a failure; a failed launch raises.  Beside
+``.launches`` the wrapper counts its launches per design in ``.designs``.
 """
 
 from __future__ import annotations
@@ -54,10 +58,10 @@ __all__ = [
 ]
 
 DESIGNS = ("wgmma", "simt")
-# what the tensor-core design takes: pixel slots (five k-steps of 16),
-# channels (one accumulator column block), and the bucket model its
-# epilogue is compiled for (f_avg of degree <= 4 in the window mean)
-TC_MAX_PIXELS, TC_MAX_CHANNELS, TC_BUCKETS, TC_AVG_TERMS, TC_MAX_AVG_POWER = 80, 8, 5, 15, 4
+# what the tensor-core design takes: pixel slots (five k-steps of 16) and
+# the bucket model its epilogue is compiled for (f_avg of degree <= 4 in the
+# window mean); any channel count, in blocks of 8
+TC_MAX_PIXELS, TC_BUCKETS, TC_AVG_TERMS, TC_MAX_AVG_POWER = 80, 5, 15, 4
 
 # Monomial pairs of the degree-3 bucket surfaces; the kernel combines them
 # in this order (the fit's own order).
@@ -290,21 +294,19 @@ def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> No
         raise ValueError(f"{name} must be contiguous")
 
 
-def design(patches: torch.Tensor, tables: ConvTables, n_channels: int) -> str:
+def design(patches: torch.Tensor, tables: ConvTables) -> str:
     """The kernel design a launch on these inputs takes: ``"wgmma"`` for at
-    most ``TC_MAX_PIXELS`` pixel slots and ``TC_MAX_CHANNELS`` channels, a
-    model with ``TC_BUCKETS`` buckets and ``TC_AVG_TERMS`` f_avg terms of
-    degree at most ``TC_MAX_AVG_POWER`` in the window mean (the epilogue the
-    kernel is compiled for) and a 16-byte-aligned patch matrix (its tiles
-    come in by 16-byte copies); ``"simt"`` otherwise."""
+    most ``TC_MAX_PIXELS`` pixel slots under a model with ``TC_BUCKETS``
+    buckets and ``TC_AVG_TERMS`` f_avg terms of degree at most
+    ``TC_MAX_AVG_POWER`` in the window mean (the epilogue the kernel is
+    compiled for), ``"simt"`` otherwise.  Neither the channel count nor the
+    patch matrix's alignment decides it."""
     model = tables.model
     takes = (
         patches.shape[1] <= TC_MAX_PIXELS
-        and n_channels <= TC_MAX_CHANNELS
         and model.n_buckets == TC_BUCKETS
         and len(model.f_avg.exps) == TC_AVG_TERMS
         and max(int(a) for a, _ in model.f_avg.exps) <= TC_MAX_AVG_POWER
-        and patches.data_ptr() % 16 == 0
     )
     return "wgmma" if takes else "simt"
 
@@ -356,8 +358,10 @@ def fpca_conv_cuda(
             f"n_rows: expected one contiguous int32 on {dev}, got {n_rows.dtype} "
             f"{tuple(n_rows.shape)} on {n_rows.device}"
         )
+    if patches.data_ptr() % 16:   # the tensor-core design's tiles come in by 16-byte copies
+        patches = patches.clone()
     out = torch.empty((M, C), dtype=torch.float32, device=dev)
-    chosen = design(patches, tables, C)
+    chosen = design(patches, tables)
     err = _launch(patches, planes, tables, bn_offset, row_valid, out, tensor_cores=chosen == "wgmma", n_rows=n_rows)
     if err:
         raise RuntimeError(f"fpca_conv kernel ({chosen}) launch failed with CUDA error {err}")

@@ -309,9 +309,9 @@ def test_one_unsplit_pass_breaks_the_limit(case, n, bits):
     assert worst > COUNTS
 
 
-def _design_case(pm, m, n, c, cut=0, **model_changes):
+def _design_case(pm, m, n, cut=0, **model_changes):
     tables = kernel.conv_tables(dataclasses.replace(pm, **model_changes), ADCConfig(), n, torch.device("cpu"))
-    return torch.zeros((m + cut, n))[cut:], tables, c
+    return torch.zeros((m + cut, n))[cut:], tables
 
 
 @pytest.mark.parametrize(
@@ -322,20 +322,28 @@ def _design_case(pm, m, n, c, cut=0, **model_changes):
         (300, 27, 1, 0, "wgmma"),      # fewer pixels and channels: zero padding
         (300, 80, 8, 0, "wgmma"),      # the padded K exactly
         (300, 81, 8, 0, "simt"),       # more pixel slots than the padded K
-        (300, 75, 13, 0, "simt"),      # more channels than one column block
-        (300, 75, 8, 1, "simt"),       # the first row 300 bytes in: not 16-byte aligned
+        (300, 75, 13, 0, "wgmma"),     # two channel blocks, the second ragged
+        (300, 75, 8, 1, "wgmma"),      # 300 bytes in: the wrapper copies it to an aligned buffer
         (300, 75, 8, 4, "wgmma"),      # 1200 bytes in: aligned
+        (147456, 75, 12, 0, "wgmma"),  # adaptive_stream's fan-out, 8 + 4
+        (147456, 75, 16, 0, "wgmma"),  # the server's fan-out, 8 + 8
+        (147456, 75, 32, 0, "wgmma"),  # the pipeline's merged group, 4 x 8
+        (300, 75, 40, 0, "wgmma"),     # five channel blocks
+        (300, 81, 16, 0, "simt"),      # a stack past the padded K
     ],
 )
 def test_design_takes_the_served_shape_to_the_tensor_cores(models, m, n, c, cut, chosen):
-    assert kernel.design(*_design_case(models[75][1], m, n, c, cut)) == chosen
+    """The design depends on the pixel count and the bucket model alone:
+    ``c``, the launch's channel count, is not an input of :func:`design`, so
+    a channel-stacked launch takes the design of each of its configs."""
+    assert kernel.design(*_design_case(models[75][1], m, n, cut)) == chosen
 
 
 def test_design_takes_other_bucket_models_to_simt(models):
     """The epilogue is compiled for 5 buckets and 15 f_avg terms."""
     pm = models[75][1]
-    assert kernel.design(*_design_case(pm, 64, 75, 8)) == "wgmma"
+    assert kernel.design(*_design_case(pm, 64, 75)) == "wgmma"
     four = dict(bucket_coeffs=pm.bucket_coeffs[:4], v_centers=pm.v_centers[:4], centers=pm.centers[:4])
-    assert kernel.design(*_design_case(pm, 64, 75, 8, **four)) == "simt"
+    assert kernel.design(*_design_case(pm, 64, 75, **four)) == "simt"
     fewer = PolySurface(coeffs=pm.f_avg.coeffs[:10], exps=pm.f_avg.exps[:10])
-    assert kernel.design(*_design_case(pm, 64, 75, 8, f_avg=fewer)) == "simt"
+    assert kernel.design(*_design_case(pm, 64, 75, f_avg=fewer)) == "simt"

@@ -42,12 +42,14 @@ Tolerances, each kernel against its plain PyTorch version on the card:
   training step of the example's network and ``calibrate_gain``, card vs
   host: loss, grad norm and gain within 1e-5, parameters within 1e-4 of
   max|value| (f32 sums in another order).
-- multi-camera serving: a stacked C = 16 fan-out launch (SIMT design)
-  within the fpca limit of the plain version and of each config's
-  tensor-core launch, and bit for bit each config's own SIMT launch (one
-  design rounds one way); server cameras at depth 2 and segments of two
-  streams interleaved on one shared handle equal each stream served alone
-  through its own handle, bit for bit.
+- multi-camera serving: a channel-stacked launch (8 + 8, 8 + 4, 4 + 6,
+  4 x 8) is one tensor-core launch within the fpca limit of the plain
+  version and bit for bit each config's own launch (the design depends on
+  the pixel count and the bucket model, never on the channel count, and
+  each accumulator element is its own column's dot product); server
+  cameras at depth 2 and segments of two streams interleaved on one shared
+  handle equal each stream served alone through its own handle, bit for
+  bit.
 - the launch tooling: the production FPCA cell at a mid size (4 frames of
   400x400x3) in one launch within the fpca limit of the plain version;
   fleet serving on the card's one-rank NCCL mesh equal to ``mesh=None``
@@ -119,7 +121,10 @@ def _inputs(m: int, n: int, c: int, dev: torch.device, seed: int = 0):
 
 
 @pytest.mark.parametrize("m,n,c,chosen", [
-    (1, 75, 1, "wgmma"), (127, 75, 8, "wgmma"), (129, 75, 13, "simt"), (5000, 75, 16, "simt"),
+    (1, 75, 1, "wgmma"), (127, 75, 8, "wgmma"), (129, 75, 13, "wgmma"),
+    (5000, 75, 16, "simt"),     # SIMT channel tiles, through the C entry point (the wrapper picks wgmma)
+    (2000, 75, 40, "wgmma"),    # five channel blocks
+    (300, 81, 16, "simt"),      # a stack past the padded K
     (300, 27, 8, "wgmma"), (300, 48, 5, "wgmma"),
     (1000, 75, 8, "wgmma"),     # a ragged last tile (7 full tiles and 104 rows)
     (100, 75, 8, "wgmma"),      # fewer rows than a tile
@@ -128,7 +133,8 @@ def _inputs(m: int, n: int, c: int, dev: torch.device, seed: int = 0):
 @pytest.mark.parametrize("bits", [8, 16])
 def test_kernel_matches_plain_version(cuda, model, m, n, c, chosen, bits):
     """Ragged rows and channel tiles, odd and even pixel counts; each case
-    takes the design it names."""
+    takes the design it names (the wrapper's, or else the named design
+    through the C entry point)."""
     _check_kernel(cuda, model, m, n, c, chosen, bits)
 
 
@@ -146,30 +152,41 @@ def _check_kernel(cuda, model, m, n, c, chosen, bits):
     tables = conv_tables(model, ADCConfig(bits=bits), n, cuda)
     planes = weight_planes(w_pos, w_neg, tables)
     before, designs = fpca_conv_cuda.launches, dict(fpca_conv_cuda.designs)
-    got = fpca_conv_cuda(patches, planes, tables, bn)
+    wrapper = fpca_design(patches, tables) == chosen
+
+    def run(row_valid=None):
+        if wrapper:
+            return fpca_conv_cuda(patches, planes, tables, bn, row_valid=row_valid)
+        out = torch.empty((m, c), device=cuda)
+        assert fpca_kernel._launch(patches, planes, tables, bn, row_valid, out, tensor_cores=chosen == "wgmma") == 0
+        return out
+
+    got = run()
     want = fpca_conv_basis(patches, planes, tables, bn)
     torch.cuda.synchronize()
-    assert fpca_conv_cuda.launches == before + 1
-    assert fpca_conv_cuda.designs == {**designs, chosen: designs[chosen] + 1}
+    if wrapper:
+        assert fpca_conv_cuda.launches == before + 1
+        assert fpca_conv_cuda.designs == {**designs, chosen: designs[chosen] + 1}
     diff = (got - want).abs()
     assert float(diff.max()) <= 1.0
     assert float((diff > 0).float().mean()) < 0.05
     valid = (torch.arange(m, device=cuda) % 4 != 1).float()
-    got_v = fpca_conv_cuda(patches, planes, tables, bn, row_valid=valid)
+    got_v = run(valid)
     assert bool((got_v[valid == 0] == 0).all())
     assert torch.equal(got_v[valid == 1], got[valid == 1])
 
 
-@pytest.mark.parametrize("cut,chosen", [(1, "simt"), (4, "wgmma")])
+@pytest.mark.parametrize("cut,chosen", [(1, "wgmma"), (4, "wgmma")])
 def test_kernel_reads_a_patch_matrix_that_starts_inside_an_allocation(cuda, model, cut, chosen):
     """Rows cut from the front of a wider matrix: a start 300 bytes in is
-    not 16-byte aligned and goes to the SIMT design, one 1200 bytes in is
-    and takes the tensor-core design; both agree with the plain version."""
+    not 16-byte aligned (the wrapper copies it to a fresh buffer), one 1200
+    bytes in is; both take the tensor-core design, agree with the plain
+    version and equal the launch on an aligned copy bit for bit."""
     patches, w_pos, w_neg, bn = _inputs(777 + cut, 75, 8, cuda, seed=cut)
     patches = patches[cut:]
     tables = conv_tables(model, ADCConfig(), 75, cuda)
     planes = weight_planes(w_pos, w_neg, tables)
-    assert fpca_design(patches, tables, 8) == chosen
+    assert fpca_design(patches, tables) == chosen
     designs = dict(fpca_conv_cuda.designs)
     got = fpca_conv_cuda(patches, planes, tables, bn)
     want = fpca_conv_basis(patches, planes, tables, bn)
@@ -177,6 +194,7 @@ def test_kernel_reads_a_patch_matrix_that_starts_inside_an_allocation(cuda, mode
     assert fpca_conv_cuda.designs == {**designs, chosen: designs[chosen] + 1}
     diff = (got - want).abs()
     assert float(diff.max()) <= 1.0 and float((diff > 0).float().mean()) < 0.05
+    assert torch.equal(got, fpca_conv_cuda(patches.clone(), planes, tables, bn))
 
 
 @pytest.mark.parametrize("m", [100, 36864])
@@ -186,7 +204,7 @@ def test_tensor_core_kernel_is_deterministic_and_keeps_real_rows_exact(cuda, mod
     patches, w_pos, w_neg, bn = _inputs(m, 75, 8, cuda, seed=m)
     tables = conv_tables(model, ADCConfig(), 75, cuda)
     planes = weight_planes(w_pos, w_neg, tables)
-    assert fpca_design(patches, tables, 8) == "wgmma"
+    assert fpca_design(patches, tables) == "wgmma"
     first = fpca_conv_cuda(patches, planes, tables, bn)
     assert torch.equal(fpca_conv_cuda(patches, planes, tables, bn), first)
     valid = (torch.rand(m, generator=torch.Generator().manual_seed(m)) < 0.3).float().to(cuda)
@@ -333,6 +351,29 @@ def test_kernel_walks_the_row_count_it_reads_from_the_device(cuda, model, tensor
         assert fpca_conv_cuda.launches == before + 1
 
 
+@pytest.mark.parametrize("c", [13, 40])
+def test_channel_blocks_equal_their_configs_and_walk_the_row_count(cuda, model, c):
+    """A launch of C channels runs ceil(C / 8) channel blocks.  Any run of
+    its channels, at a block boundary or not (0-8, 4-10, 8-C), launched
+    alone gives the same counts bit for bit; with a device row count, every
+    block zeroes its own channels of the rows past it."""
+    m = 1000
+    patches, w_pos, w_neg, bn = _inputs(m, 75, c, cuda, seed=c)
+    tables = conv_tables(model, ADCConfig(), 75, cuda)
+    planes = weight_planes(w_pos, w_neg, tables)
+    full = fpca_conv_cuda(patches, planes, tables, bn)
+    for lo, hi in ((0, 8), (4, 10), (8, c)):
+        part = {k: v[..., lo:hi].contiguous() for k, v in planes.items()}
+        assert torch.equal(fpca_conv_cuda(patches, part, tables, bn[lo:hi].contiguous()), full[:, lo:hi])
+    for n_rows in (0, 129, m):
+        count = torch.tensor([n_rows], dtype=torch.int32, device=cuda)
+        got = torch.full((m, c), float("nan"), device=cuda)
+        assert fpca_kernel._launch(patches, planes, tables, bn, None, got, tensor_cores=True, n_rows=count) == 0
+        torch.cuda.synchronize()
+        assert torch.equal(got[:n_rows], full[:n_rows])
+        assert torch.equal(got[n_rows:], torch.zeros_like(got[n_rows:]))
+
+
 def _segment_model(model, cuda, precision="f32"):
     spec = fpca.FPCASpec(image_h=48, image_w=48, out_channels=8, kernel=5, stride=5)
     gate = fpca.DeltaGateConfig(threshold=0.02, hysteresis=0, keyframe_interval=7)
@@ -447,32 +488,42 @@ def _own_handle(pipe, name, model, cuda):
     return fpca.compile(cfg.program, **kw)
 
 
-def test_stacked_sixteen_channel_launch_takes_simt_and_matches(cuda, model, monkeypatch):
-    """A fan-out of two 8-channel configs is one C = 16 launch on the SIMT
-    design: within the fpca limit of the plain version and of each config's
-    own tensor-core launch, and bit for bit each config's own launch when
-    that takes the SIMT design too."""
-    pipe = _serving_pipeline(cuda, model)
+STACKS = [(8, 8), (8, 4), (4, 6), (8, 8, 8, 8), (16,)]
+
+
+@pytest.mark.parametrize("widths", STACKS, ids=lambda w: "+".join(map(str, w)))
+def test_stacked_launch_takes_wgmma_and_equals_each_config_alone(cuda, model, widths):
+    """A channel stack as the server's fan-out (8 + 8), adaptive_stream's
+    (8 + 4), a config starting mid-way through a block of 8 (4 + 6) and the
+    merged pipeline group (4 x 8) is one launch on the tensor-core design:
+    each config's slice equals that config's own launch bit for bit, and the
+    stack is within the fpca limit of the plain version.  (16,) is one
+    16-channel program: one tensor-core launch, within the limit of plain."""
+    from repro_torch.serving import FPCAPipeline
+
+    spec = fpca.FPCASpec(image_h=48, image_w=48, out_channels=8, kernel=5, stride=5)
+    pipe = FPCAPipeline(model, device=cuda)
+    g = torch.Generator().manual_seed(11 + sum(widths))
+    names = [f"s{i}" for i in range(len(widths))]
+    for name, c_o in zip(names, widths):
+        pipe.register(name, spec, torch.randn((c_o, 5, 5, 3), generator=g) * 0.3,
+                      torch.randint(0, 24, (c_o,), generator=g).float())
     frames = _scene(6).to(cuda)
     keep = (torch.rand((6, 9, 9), generator=torch.Generator().manual_seed(2)) < 0.5).numpy()
     before, designs = fpca_conv_cuda.launches, dict(fpca_conv_cuda.designs)
-    got = pipe.run_config_batch(["fe0", "fe1"], frames, keep)
+    got = pipe.run_config_batch(names if len(names) > 1 else names[0], frames, keep)
     torch.cuda.synchronize()
-    assert fpca_conv_cuda.launches == before + 1 and fpca_conv_cuda.designs["simt"] == designs["simt"] + 1
-    plain = fpca.compile(pipe._configs["fe0"].program.replace(out_channels=16), backend="basis", device=cuda,
-                         model=model, weights=torch.cat([pipe._configs[n].kernel for n in ("fe0", "fe1")]),
-                         bn_offset=torch.cat([pipe._configs[n].bn_offset for n in ("fe0", "fe1")]))
+    assert fpca_conv_cuda.launches == before + 1 and fpca_conv_cuda.designs["wgmma"] == designs["wgmma"] + 1
+    assert got.shape[-1] == sum(widths)
+    plain = fpca.compile(pipe._configs[names[0]].program.replace(out_channels=sum(widths)), backend="basis",
+                         device=cuda, model=model,
+                         weights=torch.cat([pipe._configs[n].kernel for n in names]),
+                         bn_offset=torch.cat([pipe._configs[n].bn_offset for n in names]))
     diff = (got - plain.run_weighted(plain.kernel, plain.bn_offset, frames, keep)).abs()
     assert float(diff.max()) <= 1.0 and float((diff > 0).float().mean()) < 0.05
-    for i, name in enumerate(("fe0", "fe1")):
+    for name, lo, hi in pipe.config_channel_slices(names):
         own = _own_handle(pipe, name, model, cuda)
-        tc = own.run_weighted(own.kernel, own.bn_offset, frames, keep)
-        d = (got[..., 8 * i:8 * i + 8] - tc).abs()
-        assert float(d.max()) <= 1.0 and float((d > 0).float().mean()) < 0.05
-        monkeypatch.setattr(fpca_kernel, "TC_MAX_CHANNELS", 0)
-        simt = own.run_weighted(own.kernel, own.bn_offset, frames, keep)
-        monkeypatch.undo()
-        assert torch.equal(got[..., 8 * i:8 * i + 8], simt)
+        assert torch.equal(got[..., lo:hi], own.run_weighted(own.kernel, own.bn_offset, frames, keep))
 
 
 def test_four_camera_server_at_depth_two_equals_each_stream(cuda, model):

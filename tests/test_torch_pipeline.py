@@ -222,6 +222,35 @@ def test_fanout_batch_matches_reference_and_each_config(models, heads, names):
     assert p._stacked_planes(list(names), [p._configs[n] for n in names]) is p._stacked[tuple(names)]
 
 
+@pytest.mark.parametrize("widths", [(8, 8), (8, 4), (4, 6), (8, 8, 8, 8)], ids=lambda w: "+".join(map(str, w)))
+def test_stacked_fanout_equals_each_config_alone(models, widths):
+    """Channel stacks as the server and the merged pipeline launch them: 8 +
+    8 (the server's fan-out), 8 + 4 (adaptive_stream's), 4 + 6 (a config
+    starting mid-way through a block of 8) and 4 x 8 (the merged group).
+    Each config's slice equals its own launch bit for bit, and the slices
+    are the stack's layout, the reference's."""
+    jm, pm = models
+    j = jpipe.FPCAPipeline(jm, backend="basis")
+    p = ppipe.FPCAPipeline(pm, backend="basis", device="cpu")
+    names = [f"s{i}" for i in range(len(widths))]
+    rng = np.random.default_rng(len(widths) * 10 + widths[-1])
+    for name, c_o, seed in zip(names, widths, range(20, 20 + len(widths))):
+        bn = rng.integers(0, 24, c_o).astype(np.float32)
+        for pipe, mod in ((j, jfpca), (p, fpca)):   # one spec, as a fan-out needs; the kernel sets c_o
+            pipe.register(name, _specs(mod)["dense"], _kernel(seed, c_o=c_o), bn)
+    images = rng.uniform(0, 1, (3, H, W, 3)).astype(np.float32)
+    keep = rng.random((3, 4, 4)) < 0.5
+    got = p.run_config_batch(names, images, keep)
+    slices = p.config_channel_slices(names)
+    assert slices == j.config_channel_slices(names)
+    assert [(lo, hi) for _, lo, hi in slices] == [(sum(widths[:i]), sum(widths[:i + 1])) for i in range(len(widths))]
+    assert got.shape[-1] == sum(widths)
+    for name, lo, hi in slices:
+        cfg = p._configs[name]
+        solo = p.handle_for(cfg.program, hi - lo).run_weighted(cfg.kernel, cfg.bn_offset, images, keep)
+        assert torch.equal(got[..., lo:hi], solo)
+
+
 @pytest.mark.segment
 def test_run_config_segment_matches_reference(models, heads):
     j, p = _pair(models, heads)
