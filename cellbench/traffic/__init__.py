@@ -1,0 +1,1 @@
+"""Traffic mixes (``<mix>.json``) and the generator that reads them."""
