@@ -39,6 +39,7 @@ from repro_torch.core.adc import ADCConfig, updown_readout
 from repro_torch.core.curvefit import BucketCurvefitModel
 from repro_torch.core.fpca_sim import WeightEncoding, _analog_read, encode_weights, extract_windows
 from repro_torch.core.mapping import FPCASpec, output_dims
+from repro_torch.fpca import telemetry
 from repro_torch.kernels.fpca_conv.ops import fpca_conv, make_fpca_conv_executable
 from repro_torch.training.tree import tree_leaves, tree_map
 
@@ -81,13 +82,11 @@ class Backend:
     def instrumented(self, fn: Callable, *, site: str) -> Callable:
         """Wrap an executable with the opt-in device-profile hooks of
         :func:`repro_torch.fpca.telemetry.instrument_launch` (launch count,
-        ``torch.profiler.record_function`` range, sampled device time),
+        the profiler range ``fpca.launch.<site>``, sampled device time),
         labelled ``{site, backend}``.  :class:`repro_torch.fpca.CompiledFrontend`
         routes every executable it builds through this; with telemetry off
-        it costs one ``is None`` check per call."""
-        from repro_torch.fpca.telemetry import instrument_launch
-
-        return instrument_launch(fn, site=site, backend=self.name)
+        it costs an ``is None`` check and a profiler check per call."""
+        return telemetry.instrument_launch(fn, site=site, backend=self.name)
 
     def make_model_executable(
         self,
@@ -117,7 +116,9 @@ class Backend:
         head = model_program.apply_head
 
         def run(images, kernel, bn_offset, head_params, *window_mask):
-            return head(head_params, frontend(images, kernel, bn_offset, *window_mask))
+            counts = frontend(images, kernel, bn_offset, *window_mask)
+            with telemetry.layer("head"):
+                return head(head_params, counts)
 
         return run
 
@@ -300,12 +301,14 @@ class _CapturedSegment:
         if self._graph is None:
             self._capture(args)
         else:
-            for dst, src in zip(tree_leaves(self._static), tree_leaves(args), strict=True):
-                if dst.shape != src.shape:
-                    raise ValueError(f"segment input of shape {tuple(src.shape)}, captured as {tuple(dst.shape)}")
-                dst.copy_(src, non_blocking=True)
-        self._graph.replay()
-        return tree_map(torch.clone, self._out)
+            with telemetry.layer("segment.stage"):
+                for dst, src in zip(tree_leaves(self._static), tree_leaves(args), strict=True):
+                    if dst.shape != src.shape:
+                        raise ValueError(f"segment input of shape {tuple(src.shape)}, captured as {tuple(dst.shape)}")
+                    dst.copy_(src, non_blocking=True)
+        with telemetry.layer("segment.replay"):
+            self._graph.replay()
+            return tree_map(torch.clone, self._out)
 
 
 _REGISTRY: dict[str, Backend] = {}

@@ -72,6 +72,8 @@ _C_MODEL_FRAMES = telemetry.registry().counter(
     "frames/ticks served by model-side dispatches",
     ("arch",), max_label_sets=64,
 )
+# the ``run_segment`` span's fields, by whether a head runs in the segment
+_SEGMENT_FIELDS = {False: {"model": False}, True: {"model": True}}
 
 
 class FrontendStats(telemetry.StatsView):
@@ -381,6 +383,27 @@ class CompiledFrontend:
         the all-skipped result without a launch.
         """
         executable_for = executable_for or self._executable
+        with telemetry.layer("prepare"):
+            run, images, mask, b = self._prepare_weighted(kernel, images, window_keep, executable_for)
+        if run is None:
+            # all-skipped: the counts are exact zeros by contract, so nothing
+            # launches
+            h_o, w_o = output_dims(self.spec)
+            if empty is not None:
+                return empty(b, h_o, w_o, self.out_channels)
+            return torch.zeros((b, h_o, w_o, self.out_channels), device=self.device)
+        return self._run_sharded(run, images, (kernel, bn_offset, *extra), mask)[:b]
+
+    def _prepare_weighted(
+        self,
+        kernel: torch.Tensor,
+        images: Any,
+        window_keep: np.ndarray | None,
+        executable_for: Callable,
+    ) -> tuple[Callable | None, torch.Tensor, torch.Tensor | None, int]:
+        """Validation, padding, the host mask, the bucket and the accounting
+        of one weighted call: ``(executable, padded images, device mask,
+        batch)``, the executable None when every window is skipped."""
         spec = self.spec
         images = torch.as_tensor(images, dtype=torch.float32, device=self.device)
         want = (spec.image_h, spec.image_w, spec.in_channels)
@@ -409,23 +432,20 @@ class CompiledFrontend:
         if window_keep is None:
             self.stats.runs += 1
             self.stats.windows_executed += m_total
-            return self._run_sharded(executable_for(None), images, (kernel, bn_offset, *extra))[:b]
+            return executable_for(None), images, None, b
         n_keep = int(np.count_nonzero(window_keep))
         if n_keep == 0:
-            # all-skipped: the counts are exact zeros by contract, so nothing
-            # launches; the sticky bucket still counts the tick as under-full
+            # the sticky bucket still counts the tick as under-full
             self.stats.launches_skipped += 1
             sticky = self._sticky.get(m_total)
             if sticky is not None:
                 sticky.observe_idle()
-            if empty is not None:
-                return empty(b, h_o, w_o, c_o)
-            return torch.zeros((b, h_o, w_o, c_o), device=self.device)
+            return None, images, None, b
         self.stats.runs += 1
         m_bucket = self._bucket_for(n_keep, m_total)
         self.stats.windows_executed += m_bucket
         mask = torch.as_tensor(window_keep, device=self.device)
-        return self._run_sharded(executable_for(m_bucket), images, (kernel, bn_offset, *extra), mask)[:b]
+        return executable_for(m_bucket), images, mask, b
 
     # -- streaming -------------------------------------------------------------
     def stream(
@@ -572,9 +592,7 @@ class CompiledFrontend:
         )
 
     def _dispatch_segment(self, *args: Any, **kwargs: Any) -> SegmentResult:
-        if not telemetry.enabled():
-            return self._dispatch_segment_inner(*args, **kwargs)
-        with telemetry.span("run_segment", {"model": kwargs.get("head_params") is not None}):
+        with telemetry.span("run_segment", _SEGMENT_FIELDS[kwargs.get("head_params") is not None]):
             return self._dispatch_segment_inner(*args, **kwargs)
 
     def _dispatch_segment_inner(
@@ -643,45 +661,47 @@ class CompiledFrontend:
         outs, new_carry = run(frames, kernel, bn_offset, head_params, gate_args, state.carry(is_model, self.device))
         # the per-tick bookkeeping is realised here (it feeds the stats and
         # the boundary servo); counts and logits stay on the device
-        ticks = int(outs["ticks"])
-        if gated:
-            kept = _host(outs["kept"]).astype(np.int64)
-            keyframes = _host(outs["keyframe"]).astype(bool)
-            block_masks = _host(outs["block_keep"]).astype(bool)
-            rows = np.where(kept == 0, 0, np.where(kept > m_bucket, M, m_bucket))
-            rows[ticks:] = 0
-            suggested = segment_bucket(kept[:ticks], M, keyframes[:ticks])
-        else:
-            kept = np.full(K, M, np.int64)
-            keyframes = np.zeros(K, bool)
-            block_masks = np.ones((K, bh, bw), bool)
-            rows = np.full(K, M, np.int64)
-            suggested = None
-        new_state = SegmentState(*new_carry[:4])
-        if is_model:
-            new_state.eff, new_state.logits = new_carry[4], new_carry[5]
-        new_state.suggested_bucket = suggested
-        self.stats.runs += 1
-        self.stats.segments += 1
-        self.stats.segment_ticks += ticks
-        self.stats.windows_total += ticks * M
-        self.stats.windows_executed += int(rows[:ticks].sum())
-        if gated:
-            self.stats.launches_skipped += int((kept[:ticks] == 0).sum())
-        return SegmentResult(
-            counts=outs["counts"],
-            block_masks=block_masks,
-            kept_windows=kept,
-            keyframes=keyframes,
-            rows_executed=rows,
-            ticks=ticks,
-            length=K,
-            first_frame_idx=first_idx,
-            gated=gated,
-            state=new_state,
-            logits=outs.get("logits"),
-            detect_classes=self.model_program.detect_classes if is_model else None,
-        )
+        with telemetry.layer("segment.wait"):
+            ticks = int(outs["ticks"])
+        with telemetry.layer("segment.realise"):
+            if gated:
+                kept = _host(outs["kept"]).astype(np.int64)
+                keyframes = _host(outs["keyframe"]).astype(bool)
+                block_masks = _host(outs["block_keep"]).astype(bool)
+                rows = np.where(kept == 0, 0, np.where(kept > m_bucket, M, m_bucket))
+                rows[ticks:] = 0
+                suggested = segment_bucket(kept[:ticks], M, keyframes[:ticks])
+            else:
+                kept = np.full(K, M, np.int64)
+                keyframes = np.zeros(K, bool)
+                block_masks = np.ones((K, bh, bw), bool)
+                rows = np.full(K, M, np.int64)
+                suggested = None
+            new_state = SegmentState(*new_carry[:4])
+            if is_model:
+                new_state.eff, new_state.logits = new_carry[4], new_carry[5]
+            new_state.suggested_bucket = suggested
+            self.stats.runs += 1
+            self.stats.segments += 1
+            self.stats.segment_ticks += ticks
+            self.stats.windows_total += ticks * M
+            self.stats.windows_executed += int(rows[:ticks].sum())
+            if gated:
+                self.stats.launches_skipped += int((kept[:ticks] == 0).sum())
+            return SegmentResult(
+                counts=outs["counts"],
+                block_masks=block_masks,
+                kept_windows=kept,
+                keyframes=keyframes,
+                rows_executed=rows,
+                ticks=ticks,
+                length=K,
+                first_frame_idx=first_idx,
+                gated=gated,
+                state=new_state,
+                logits=outs.get("logits"),
+                detect_classes=self.model_program.detect_classes if is_model else None,
+            )
 
     def _fresh_segment_state(self, hysteresis: int, is_model: bool) -> SegmentState:
         st = SegmentState(*gating.init_gate_carry(self.spec, hysteresis, self.device))

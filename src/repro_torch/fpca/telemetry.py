@@ -12,40 +12,51 @@ Export surfaces:
 
 * ``registry().render()``   — Prometheus-style text snapshot.
 * ``enable(jsonl_path=...)``— structured JSONL event log (spans, servo
-  actuations, device-time samples), strict RFC 8259 JSON (no NaN/Infinity).
+  actuations, device-time samples), strict RFC 8259 JSON (no NaN/Infinity),
+  written from memory at ``flush()`` and ``disable()``.
+* ``session().spans`` / ``.samples`` — the session's bounded rings of span
+  records (ids, parent, call id, start and end on the profiler's host
+  clock) and device-time samples, for readers in the same process.
+* ``torch.profiler`` ranges ``fpca.<span>`` and ``fpca.launch.<site>``,
+  opened whenever a profiler records, with or without a session.
 
 Everything costs next to nothing when disabled: ``span()`` returns one
-shared null context manager, launch wrappers are a single ``is None``
-check, and no hot-path code builds dicts or synchronises the device unless
-a session is active.  The device hooks (``torch.profiler.record_function``
-ranges, and sampled device time from a pair of CUDA events) are opt-in per
-session and rate-limited, so steady-state dispatch stays asynchronous.
+shared null context manager unless a profiler records, launch wrappers are
+an ``is None`` check and a profiler check, and no hot-path code builds
+dicts or waits on the device.  Device time comes from CUDA event pairs
+resolved at later launches without waiting, so steady-state dispatch stays
+asynchronous; only ``disable()`` waits for the pairs still in flight.
 """
 
 from __future__ import annotations
 
 import bisect
+import collections
 import itertools
 import json
 import threading
 import time
 import weakref
 from pathlib import Path
-from typing import Any, Callable, Iterator, Optional
+from typing import Any, Callable, Iterator, NamedTuple, Optional
 
 import numpy as np
+import torch
 
 __all__ = [
     "MetricsRegistry",
     "MetricFamily",
     "StatsView",
     "TelemetrySession",
+    "SpanRecord",
+    "DeviceSample",
     "enable",
     "disable",
     "enabled",
     "session",
     "registry",
     "span",
+    "layer",
     "event",
     "instrument_launch",
     "jsonable",
@@ -484,52 +495,163 @@ class StatsView:
 # --------------------------------------------------------------------------
 # session / spans / events
 
+# span records and device-time samples a session keeps in memory (each
+# ring); a 51 s window of the busiest served path emits about 5e4 spans
+RING_SIZE = 1 << 18
+# JSONL records held before they are written (also written at flush())
+_LINES_HELD = 1 << 16
+# device-time event pairs in flight per launch site; a timed launch past
+# this goes untimed rather than wait
+MAX_PENDING = 64
+
+# one id sequence for every span of the process: ids are unique across
+# sessions and threads
+_IDS = itertools.count(1)
+_profiling = torch.autograd._profiler_enabled
+
+
+class DeviceSample(NamedTuple):
+    """One resolved device-time sample of an instrumented launch."""
+
+    site: str
+    backend: str
+    dur_s: float
+    launch: int        # the launch's number at its site
+    profiled: bool     # a profiler was recording when it launched
+
 
 class TelemetrySession:
-    """One enabled telemetry run: JSONL sink + device-hook policy."""
+    """One enabled telemetry run.
+
+    Span records (:class:`SpanRecord`) and device-time samples
+    (:class:`DeviceSample`) go into two bounded rings, ``spans`` and
+    ``samples``; when a ring is full its oldest record goes and ``dropped``
+    counts it.  JSONL records are held in memory and written, in emission
+    order, at :meth:`flush` (or once ``_LINES_HELD`` are held) and at
+    :meth:`close`; without a ``jsonl_path`` they are only counted.
+    """
 
     def __init__(self, jsonl_path: Path | str | None = None, *,
-                 profile: bool = False, device_time_rate: int = 0,
-                 run_labels: dict | None = None):
+                 device_time_rate: int = 0, run_labels: dict | None = None):
         self.jsonl_path = Path(jsonl_path) if jsonl_path else None
-        self.profile = bool(profile)
-        # sample device time (a CUDA event pair, or a synchronise) on every
-        # Nth instrumented launch; 0 never waits on the device.
+        # time the device on every Nth instrumented launch: a CUDA event
+        # pair resolved later without waiting (on the host, the call's
+        # clock time); 0 never times
         self.device_time_rate = int(device_time_rate)
         self.run_labels = dict(run_labels or {})
         self.events_written = 0
+        self.spans: collections.deque = collections.deque(maxlen=RING_SIZE)
+        self.samples: collections.deque = collections.deque(maxlen=RING_SIZE)
+        self.dropped = 0
+        # (site, backend) -> event pairs not yet resolved, oldest first;
+        # resolved pairs' events are recorded again, not made anew
+        self._pending: dict[tuple[str, str], collections.deque] = {}
+        self._free_events: list = []
+        self._lines: list[dict] = []
         self._fh = None
-        self._lock = threading.Lock()
+        # guards the rings' drop count, the held JSONL and the event-pair
+        # queues; reentrant, as resolving a pair emits its sample's event
+        self._lock = threading.RLock()
         if self.jsonl_path is not None:
             self.jsonl_path.parent.mkdir(parents=True, exist_ok=True)
             self._fh = open(self.jsonl_path, "w")
         self.event("session_start", labels=self.run_labels)
 
-    def event(self, kind: str, **fields) -> None:
-        if self._fh is None:
-            self.events_written += 1
-            return
-        rec = {"ts": time.time(), "event": kind, **fields}
-        line = json.dumps(jsonable(rec), allow_nan=False)
+    def _keep(self, ring: collections.deque, rec) -> None:
         with self._lock:
-            self._fh.write(line + "\n")
+            if len(ring) == ring.maxlen:
+                self.dropped += 1
+            ring.append(rec)
+
+    def event(self, kind: str, **fields) -> None:
+        with self._lock:
             self.events_written += 1
+            if self._fh is None:
+                return
+            self._lines.append({"ts": time.time(), "event": kind, **fields})
+            full = len(self._lines) >= _LINES_HELD
+        if full:
+            self._write()
+
+    def _write(self) -> None:
+        with self._lock:
+            lines, self._lines = self._lines, []
+            if self._fh is None:
+                return
+            for rec in lines:
+                self._fh.write(json.dumps(jsonable(rec), allow_nan=False) + "\n")
+            self._fh.flush()
+
+    def _sample(self, site: str, backend: str, dur_s: float, launch: int,
+                profiled: bool) -> None:
+        _DEVICE_SECONDS.labels(site=site, backend=backend).observe(dur_s)
+        self._keep(self.samples, DeviceSample(site, backend, dur_s, launch, profiled))
+        self.event("device_time", site=site, backend=backend, dur_s=dur_s,
+                   launch=launch)
+
+    def _resolve(self, key: tuple[str, str], *, wait: bool = False) -> None:
+        """Turn the finished event pairs of ``key``'s launches into samples,
+        oldest first, up to the first that has not finished (``wait``: all
+        of them, waiting for each)."""
+        with self._lock:
+            queue = self._pending.get(key)
+            while queue:
+                start, end, launch, profiled = queue[0]
+                if wait:
+                    end.synchronize()
+                elif not end.query():
+                    return
+                queue.popleft()
+                self._sample(*key, start.elapsed_time(end) / 1e3, launch, profiled)
+                self._free_events += (start, end)
+
+    def _event(self):
+        return self._free_events.pop() if self._free_events else torch.cuda.Event(enable_timing=True)
+
+    def _start(self, key: tuple[str, str]):
+        """A start event recorded now for a timed launch of ``key`` on the
+        card, once ``key``'s finished pairs are resolved; None while
+        :data:`MAX_PENDING` of its pairs are in flight."""
+        with self._lock:
+            self._resolve(key)
+            if len(self._pending.setdefault(key, collections.deque())) >= MAX_PENDING:
+                return None
+            start = self._event()
+            start.record()
+            return start
+
+    def _end(self, key: tuple[str, str], start, launch: int, profiled: bool) -> None:
+        """Queue ``start``'s pair, its end event recorded now."""
+        with self._lock:
+            end = self._event()
+            end.record()
+            self._pending[key].append((start, end, launch, profiled))
+
+    def _unused(self, start) -> None:
+        """Take back a start event whose launch left its output on the host."""
+        with self._lock:
+            self._free_events.append(start)
 
     def flush(self) -> None:
-        if self._fh is not None:
-            self._fh.flush()
+        """Resolve the device-time pairs that have finished, without
+        waiting, and write the JSONL held so far."""
+        for key in list(self._pending):
+            self._resolve(key)
+        self._write()
 
     def close(self) -> None:
+        for key in list(self._pending):
+            self._resolve(key, wait=True)
         self.event("session_end", events=self.events_written)
+        self._write()
         if self._fh is not None:
-            self._fh.flush()
             self._fh.close()
             self._fh = None
 
 
 class _State(threading.local):
     def __init__(self):
-        self.stack: list[str] = []
+        self.stack: list[_Span] = []
 
 
 _LOCAL = _State()
@@ -537,28 +659,30 @@ _SESSION: TelemetrySession | None = None
 
 
 def enable(jsonl_path: Path | str | None = None, *,
-           profile: bool = False, device_time_rate: int = 0,
+           device_time_rate: int = 0,
            run_labels: dict | None = None) -> TelemetrySession:
-    """Turn telemetry on for the process (spans, JSONL, device hooks).
+    """Turn telemetry on for the process (spans, JSONL, device time).
 
     Counters in stats views are *always* live (they are plain attribute
-    adds); what ``enable`` switches on is the expensive part: span timing,
-    JSONL event emission, and the opt-in device-profile hooks
-    (``profile=True`` wraps launches in ``torch.profiler.record_function``;
-    ``device_time_rate=N`` waits on every Nth launch for its device time —
-    leave 0 to never wait).
+    adds); what ``enable`` switches on is span timing into the session's
+    rings, JSONL event emission, and ``device_time_rate=N``: a device-time
+    sample of every Nth instrumented launch (CUDA events resolved later, so
+    nothing waits on the card until :func:`disable`; leave 0 to time
+    nothing).  Profiler ranges need no session: every span opens one while
+    a ``torch.profiler`` records.
     """
     global _SESSION
     if _SESSION is not None:
         _SESSION.close()
-    _SESSION = TelemetrySession(jsonl_path, profile=profile,
-                                device_time_rate=device_time_rate,
+    _SESSION = TelemetrySession(jsonl_path, device_time_rate=device_time_rate,
                                 run_labels=run_labels)
     return _SESSION
 
 
 def disable() -> None:
-    """Close the active session (if any) and return to zero-overhead mode."""
+    """Close the active session (if any: it waits for the device-time pairs
+    still in flight and writes its JSONL) and return to zero-overhead
+    mode."""
     global _SESSION
     if _SESSION is not None:
         _SESSION.close()
@@ -582,7 +706,8 @@ def event(kind: str, **fields) -> None:
 
 class _NullSpan:
     """Shared no-op context manager: ``span()`` returns this exact object
-    when telemetry is disabled, so the hot path allocates nothing."""
+    when telemetry is disabled and no profiler records, so the hot path
+    allocates nothing."""
 
     __slots__ = ()
 
@@ -596,30 +721,91 @@ class _NullSpan:
 _NULL_SPAN = _NullSpan()
 
 
+def _range(name: str):
+    """A profiler range named ``name``.  Function-scoped: the profiler
+    keeps it on the host's timeline only, where a ``record_function`` range
+    would also get a copy among the device's ops (``gpu_user_annotation``)."""
+    return torch._C._profiler._RecordFunctionFast(name)
+
+
+class SpanRecord(NamedTuple):
+    """One finished span, as its session's ``spans`` ring keeps it.
+
+    ``id`` is unique in the process; ``parent`` is the enclosing span's id
+    (``parent_name`` its name, ``depth`` the number of enclosing spans);
+    ``call`` is the id of the outermost span, shared by every span of one
+    API call.  ``t0_ns`` / ``t1_ns`` are Unix-epoch nanoseconds, the clock
+    the torch profiler stamps host events with; ``profiled`` says whether a
+    profiler was recording when the span was entered (it then ran inside
+    the profiler range ``fpca.<name>``).  A tuple of plain values: the
+    garbage collector stops tracking it, so a full ring costs no
+    collection time."""
+
+    name: str
+    id: int
+    parent: Optional[int]
+    parent_name: Optional[str]
+    depth: int
+    call: int
+    t0_ns: int
+    t1_ns: int
+    profiled: bool
+
+    @property
+    def dur_s(self) -> float:
+        return (self.t1_ns - self.t0_ns) / 1e9
+
+
 class _Span:
-    __slots__ = ("name", "fields", "t0", "_session")
+    """A span while it is open: the context manager :func:`span` and
+    :func:`layer` return with a session.  A layer span (``jsonl`` False)
+    writes no JSONL line."""
+
+    __slots__ = ("name", "fields", "jsonl", "id", "parent", "parent_name",
+                 "depth", "call", "t0_ns", "profiled", "_session", "_range")
 
     def __init__(self, sess: TelemetrySession, name: str,
-                 fields: dict | None):
+                 fields: dict | None, jsonl: bool):
         self.name = name
         self.fields = fields
+        self.jsonl = jsonl
         self._session = sess
-        self.t0 = 0.0
 
     def __enter__(self):
-        _LOCAL.stack.append(self.name)
-        self.t0 = time.perf_counter()
+        stack = _LOCAL.stack
+        self.id = next(_IDS)
+        if stack:
+            outer = stack[-1]
+            self.parent, self.parent_name, self.call = outer.id, outer.name, outer.call
+        else:
+            self.parent = self.parent_name = None
+            self.call = self.id
+        self.depth = len(stack)
+        stack.append(self)
+        self.profiled = _profiling()
+        self.t0_ns = time.time_ns()
+        self._range = _range("fpca." + self.name) if self.profiled else None
+        if self._range is not None:
+            self._range.__enter__()
         return self
 
     def __exit__(self, *exc):
-        dt = time.perf_counter() - self.t0
-        stack = _LOCAL.stack
-        stack.pop()
-        parent = stack[-1] if stack else None
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
+        rec = SpanRecord(self.name, self.id, self.parent, self.parent_name, self.depth,
+                         self.call, self.t0_ns, time.time_ns(), self.profiled)
+        _LOCAL.stack.pop()
+        dt = rec.dur_s
         _SPAN_HIST.labels(span=self.name).observe(dt)
-        self._session.event(
-            "span", span=self.name, dur_s=dt, parent=parent,
-            depth=len(stack), **(self.fields or {}))
+        s = self._session
+        s._keep(s.spans, rec)
+        if self.jsonl:
+            s.event(
+                "span", span=self.name, dur_s=dt, parent=self.parent_name,
+                depth=self.depth, id=self.id, parent_id=self.parent,
+                call=self.call, t0_ns=rec.t0_ns, t1_ns=rec.t1_ns,
+                profiled=self.profiled, **(self.fields or {}))
         return False
 
 
@@ -631,15 +817,30 @@ _SPAN_HIST = _REGISTRY.histogram(
 def span(name: str, fields: dict | None = None):
     """``with telemetry.span("serve_tick", {"stream": sid}): ...``
 
-    Returns the shared null context manager when disabled — one module
-    global ``is None`` check and nothing else.  ``fields`` is a plain
+    With a session: a span whose :class:`SpanRecord` goes to the ring, its
+    time to ``fpca_span_seconds``, one JSONL line, and the profiler range
+    ``fpca.<name>`` while a profiler records.  Without one: the range alone while a profiler records, else
+    the shared null context manager — one module-global ``is None`` check
+    and one profiler check, nothing allocated.  ``fields`` is a plain
     optional dict (not ``**kwargs``) so a disabled-mode call in a tick hot
     path allocates nothing; hot call sites prebuild their label dict once
     per stream and pass the same object every tick."""
     s = _SESSION
     if s is None:
-        return _NULL_SPAN
-    return _Span(s, name, fields)
+        return _range("fpca." + name) if _profiling() else _NULL_SPAN
+    return _Span(s, name, fields, True)
+
+
+def layer(name: str):
+    """A span at a layer boundary inside one call (``prepare``,
+    ``encode``, ``extract``, ``kernel``, ``segment.wait``, ...): kept in the
+    ring, timed into ``fpca_span_seconds`` and ranged for the profiler like
+    :func:`span`, but it writes no JSONL line, so the event stream stays
+    the API's."""
+    s = _SESSION
+    if s is None:
+        return _range("fpca." + name) if _profiling() else _NULL_SPAN
+    return _Span(s, name, None, False)
 
 
 # --------------------------------------------------------------------------
@@ -651,14 +852,12 @@ _LAUNCHES = _REGISTRY.counter(
     ("site", "backend"), max_label_sets=128)
 _DEVICE_SECONDS = _REGISTRY.histogram(
     "fpca_device_seconds", "sampled device time per launch "
-    "(CUDA events; a synchronise on the host)", ("site", "backend"),
+    "(CUDA events; the call's clock time on the host)", ("site", "backend"),
     max_label_sets=128)
 
 
 def _first_tensor(out) -> Any:
     """The first tensor in a launch's output (tensors, tuples, dicts)."""
-    import torch
-
     if isinstance(out, torch.Tensor):
         return out
     if isinstance(out, dict):
@@ -672,53 +871,54 @@ def _first_tensor(out) -> Any:
 
 
 def instrument_launch(fn: Callable, *, site: str, backend: str) -> Callable:
-    """Wrap an executable with the opt-in device-profile hooks.
+    """Wrap an executable with the device-profile hooks.
 
-    Disabled mode costs one module-global ``is None`` check per call.
-    Enabled mode counts the launch; with ``profile=True`` on the session it
-    runs inside ``torch.profiler.record_function`` (a named range in a
-    profiler trace); with ``device_time_rate=N`` every Nth call is timed on
-    the device: CUDA events recorded around it on the current stream and
-    waited on (on the host, a synchronous call timed by the clock), so the
-    other calls stay asynchronous.
+    With no session and no profiler it costs one module-global ``is None``
+    check and one profiler check a call.  While a profiler records, the
+    call runs inside the range ``fpca.launch.<site>``.  With a session the
+    launch is counted, and with ``device_time_rate=N`` every Nth call is
+    timed: on the card a CUDA event pair recorded around it on the current
+    stream, resolved at a later launch of the site, at ``flush()`` or at
+    ``disable()`` (the one place that waits), with at most
+    :data:`MAX_PENDING` pairs in flight (a launch past that goes untimed);
+    on the host the call's clock time.  So every call stays asynchronous.
     """
     counter = _LAUNCHES.labels(site=site, backend=backend)
-    hist = _DEVICE_SECONDS.labels(site=site, backend=backend)
-    tag = f"fpca:{site}:{backend}"
+    tag = f"fpca.launch.{site}"
+    key = (site, backend)
     state = {"n": 0}
 
     def launch(*args, **kwargs):
         s = _SESSION
         if s is None:
-            return fn(*args, **kwargs)
-        import torch
-
+            if not _profiling():
+                return fn(*args, **kwargs)
+            with _range(tag):
+                return fn(*args, **kwargs)
         counter.add(1)
         state["n"] += 1
+        n = state["n"]
+        profiled = _profiling()
         rate = s.device_time_rate
-        timed = rate > 0 and state["n"] % rate == 0
-        cuda = timed and torch.cuda.is_available()
-        if cuda:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
+        timed = rate > 0 and n % rate == 0
+        start = None
+        if timed and torch.cuda.is_available():
+            start = s._start(key)
+            timed = start is not None
         t0 = time.perf_counter()
-        if s.profile:
-            with torch.profiler.record_function(tag):
+        if profiled:
+            with _range(tag):
                 out = fn(*args, **kwargs)
         else:
             out = fn(*args, **kwargs)
         if timed:
             t = _first_tensor(out)
-            if cuda and (t is None or t.is_cuda):
-                end.record()
-                end.synchronize()
-                dt = start.elapsed_time(end) / 1e3
+            if start is not None and (t is None or t.is_cuda):
+                s._end(key, start, n, profiled)
             else:
-                dt = time.perf_counter() - t0
-            hist.observe(dt)
-            s.event("device_time", site=site, backend=backend, dur_s=dt,
-                    launch=state["n"])
+                if start is not None:
+                    s._unused(start)
+                s._sample(site, backend, time.perf_counter() - t0, n, profiled)
         return out
 
     launch.__wrapped__ = fn

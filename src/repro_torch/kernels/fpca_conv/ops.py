@@ -244,13 +244,19 @@ def _fpca_conv_impl(
     m_bucket: int | None = None,
     lut: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Encode, extract, compact kept windows, run the kernel, scatter back."""
-    w_pos, w_neg = encode_weights(kernel, spec, enc)              # (c_o, N)
-    patches = extract_windows(images, spec)                       # (B, h_o, w_o, N)
-    B, h_o, w_o, N = patches.shape
-    M = B * h_o * w_o
-    flat = patches.reshape(M, N).contiguous()
-    planes = weight_planes(w_pos.T, w_neg.T, tables)
+    """Encode, extract, compact kept windows, run the kernel, scatter back:
+    each step in its layer span (``repro_torch.fpca.telemetry.layer``)."""
+    from repro_torch.fpca.telemetry import layer   # repro_torch.fpca imports this module
+
+    with layer("encode"):
+        w_pos, w_neg = encode_weights(kernel, spec, enc)          # (c_o, N)
+    with layer("extract"):
+        patches = extract_windows(images, spec)                   # (B, h_o, w_o, N)
+        B, h_o, w_o, N = patches.shape
+        M = B * h_o * w_o
+        flat = patches.reshape(M, N).contiguous()
+    with layer("planes"):
+        planes = weight_planes(w_pos.T, w_neg.T, tables)
 
     idx = n_rows = None
     if window_mask is not None:
@@ -260,16 +266,19 @@ def _fpca_conv_impl(
         # so kept rows stay bit-identical to a dense evaluation); the kernel
         # walks the first n_rows (the kept count, on the device) of the
         # m_bucket rows, and the padding rows (window 0) come out as zeros
-        idx, n_rows = compact_rows(window_mask.reshape(-1).to(torch.bool))
-        idx = idx[: min(m_bucket, M)]
-        flat = flat[idx]
+        with layer("compact"):
+            idx, n_rows = compact_rows(window_mask.reshape(-1).to(torch.bool))
+            idx = idx[: min(m_bucket, M)]
+            flat = flat[idx]
 
     kw = {} if lut is None else {"lut": lut}
-    counts = _IMPLS[impl](flat, planes, tables, bn_offset.float().contiguous(), n_rows=n_rows, **kw)
+    with layer("kernel"):
+        counts = _IMPLS[impl](flat, planes, tables, bn_offset.float().contiguous(), n_rows=n_rows, **kw)
     if idx is not None:
         # scatter-add back: rows past the kept count are exact zeros, so
         # the duplicate fill index 0 adds nothing
-        counts = torch.zeros((M, counts.shape[-1]), device=counts.device).index_add_(0, idx, counts)
+        with layer("scatter"):
+            counts = torch.zeros((M, counts.shape[-1]), device=counts.device).index_add_(0, idx, counts)
     return counts.reshape(B, h_o, w_o, -1)
 
 

@@ -436,6 +436,106 @@ def test_captured_segment_equals_its_eager_run_and_the_per_tick_loop(cuda, model
         assert torch.equal(seg.counts[seg.ticks:], torch.zeros_like(seg.counts[seg.ticks:]))
 
 
+def _device_time(fn, *args) -> float:
+    """Seconds of ``fn``'s device work by a synchronised CUDA event pair,
+    the card kept busy while the host enqueues it."""
+    torch.cuda._sleep(20_000_000)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn(*args)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3
+
+
+def test_device_time_samples_take_no_synchronise_and_agree_with_a_synchronised_pair(cuda, model, monkeypatch):
+    """``device_time_rate=1`` on a dense call and a segment: the samples
+    resolve at later launches and at ``flush()`` with no ``synchronize``
+    anywhere before ``disable()``, and each launch's sample (the card kept
+    busy while the host enqueues, so only device work is timed) is within
+    5% of a synchronised event pair around the same executable."""
+    import statistics
+
+    from repro_torch.fpca import telemetry
+
+    m = _segment_model(model, cuda)
+    frames, seg_frames = torch.rand((1024, 48, 48, 3), device=cuda), _scene(12).to(cuda)
+    m.run(frames)
+    m.run_segment(seg_frames)                                   # builds and captures outside the session
+    torch.cuda.synchronize()
+    waits = []
+    sync = torch.cuda.Event.synchronize
+    monkeypatch.setattr(torch.cuda.Event, "synchronize", lambda ev: (waits.append(ev), sync(ev))[1])
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: pytest.fail("telemetry synchronised the card"))
+    sess = telemetry.enable(device_time_rate=1)
+    try:
+        for _ in range(3):
+            m.run(frames).cpu()
+            m.run_segment(seg_frames)
+        sess.flush()
+        assert not waits
+        assert {s.site for s in sess.samples} == {"model", "segment"}
+        dense = m._cache._entries[next(k for k in m.cache_info(verbose=True).resident if "segment" not in k)]
+        segment = m._cache._entries[next(k for k in m.cache_info(verbose=True).resident if "segment" in k)]
+        state = m._fresh_segment_state(m.program.gate.hysteresis, True)
+        g = m.program.gate
+        gate_args = (torch.tensor(g.threshold, device=cuda), torch.tensor(g.hysteresis, dtype=torch.int32, device=cuda),
+                     torch.tensor(g.keyframe_interval, dtype=torch.int32, device=cuda))
+        cases = {"model": (dense, (frames, m.kernel, m.bn_offset, m.head_params)),
+                 "segment": (segment, (seg_frames, m.kernel, m.bn_offset, m.head_params, gate_args,
+                                       state.carry(True, cuda)))}
+        for site, (fn, args) in cases.items():
+            n0 = len(sess.samples)
+            for _ in range(5):
+                torch.cuda._sleep(20_000_000)
+                fn(*args)
+            torch.cuda.current_stream().synchronize()
+            sess.flush()
+            got = statistics.median(s.dur_s for s in list(sess.samples)[n0:] if s.site == site)
+            want = statistics.median(_device_time(fn.__wrapped__, *args) for _ in range(5))
+            assert abs(got - want) <= 0.05 * want, (site, got, want)
+        assert len(waits) == 10                                  # the yardstick's own pairs
+    finally:
+        telemetry.disable()
+
+
+def test_a_profiled_calls_ops_fall_under_its_layer_ranges(cuda, model):
+    """Under ``torch.profiler`` the fpca kernel is launched inside
+    ``fpca.kernel`` and the extraction's ops inside ``fpca.extract`` (by
+    the correlation id of each op's launch); no ``fpca.*`` range is copied
+    onto the device's timeline."""
+    from torch.profiler import ProfilerActivity, profile
+
+    m = _segment_model(model, cuda)
+    frames = torch.rand((64, 48, 48, 3), device=cuda)
+    m.run(frames)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        m.run(frames)
+        torch.cuda.synchronize()
+    ranges, launches, ops = [], {}, []
+    for e in prof.profiler.kineto_results.events():
+        if str(e.device_type()).endswith("CUDA"):
+            ops.append((e.name(), e.correlation_id()))
+        elif e.name().startswith("fpca."):
+            ranges.append((e.start_ns(), e.start_ns() + e.duration_ns(), e.name()))
+        elif e.name().startswith("cuda") and e.correlation_id():
+            launches[e.correlation_id()] = e.start_ns()
+
+    def innermost(t):
+        inside = [r for r in ranges if r[0] <= t < r[1]]
+        return max(inside)[2] if inside else None
+
+    under = {}
+    for name, corr in ops:
+        under.setdefault(innermost(launches[corr]) if corr in launches else None, []).append(name)
+    assert not any(name.startswith("fpca.") for name, _ in ops)
+    assert {r[2] for r in ranges} >= {"fpca.run", "fpca.prepare", "fpca.launch.model", "fpca.encode",
+                                      "fpca.extract", "fpca.planes", "fpca.kernel", "fpca.head"}
+    assert any("fpca_tc_kernel" in n for n in under["fpca.kernel"]), under
+    assert under["fpca.extract"], under
+
+
 def test_segment_reprogram_and_servo_step_build_nothing(cuda, model):
     """A weight rewrite and a new threshold between segments replay the same
     graph, and the replay follows the new values (equal to a fresh handle's
