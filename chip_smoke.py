@@ -14,11 +14,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  In order it
    all-skipped request; counts the kernel launches of that run, and checks
    that every one took the kernel's tensor-core design;
 6. holds each kernel of the path against its plain PyTorch version on the
-   card (both designs of the fpca kernel, with their flip shares), and the
-   served counts and logits against the dense oracle;
+   card (both designs of the fpca kernel, with their flip shares, and the
+   frames source the dense calls launch, equal to the patch source bit for
+   bit), and the served counts and logits against the dense oracle;
 7. times each kernel, its plain version and its bound: the fpca kernel's
-   two designs at the windows of batch 1, 64 and 256, beside a bound of
-   four parts (bytes, tensor-core, fp32 and MUFU operations);
+   frames source (the dense calls' kernel), its patch source with the copy
+   that makes the patch matrix, and its SIMT design at the windows of
+   batch 1, 64 and 256, beside a bound of four parts (bytes, tensor-core,
+   fp32 and MUFU operations);
 
 then, through the same kernel, the model zoo and int8 head serving:
 
@@ -264,6 +267,7 @@ from repro_torch.kernels.fpca_conv.kernel import (  # noqa: E402
     conv_tables,
     fpca_conv_basis,
     fpca_conv_cuda,
+    fpca_conv_frames_cuda,
     weight_planes,
 )
 from repro_torch.configs import ARCHS, reduce_for_smoke  # noqa: E402
@@ -526,11 +530,11 @@ def time_cuda(fn, iters: int = 20, flush_bytes: int = 128 << 20) -> float:
 # the tensor-core kernels of each library, the template width they are
 # instantiated over and the number of instantiations: the forward DP 64 /
 # 128 x with and without the LSE, dQ and dK/dV DP 64 / 128, SSD N 64 / 128,
-# fpca one (5 buckets, 15 f_avg terms)
+# fpca two (5 buckets, 15 f_avg terms) x the patch and the frames source
 WGMMA_KERNELS = {"flash_attention": (("flash_fwd_wgmma",), "D", 4),
                  "flash_attention_bwd": (("flash_bwd_dq_wgmma", "flash_bwd_dkdv_wgmma"), "D", 4),
                  "ssd_intra_chunk": (("ssd_tc_kernel",), "N", 2),
-                 "fpca_conv": (("fpca_tc_kernel",), None, 1)}
+                 "fpca_conv": (("fpca_tc_kernel",), None, 2)}
 # the libraries whose tensor-core kernels must not have their wgmma serialised
 NO_SERIALISED_WGMMA = {"ssd_intra_chunk": "ssd_tc_kernel", "fpca_conv": "fpca_tc_kernel"}
 
@@ -553,6 +557,8 @@ def check_wgmma_ptxas(logs: dict[str, str]) -> None:
                 if kernel and dim:
                     kernel += f"<{dim}=128" if "ILi128E" in name else f"<{dim}=64"
                     kernel += ", lse>" if "Lb1E" in name else ">"
+                elif kernel:   # fpca: the source
+                    kernel += "<frames>" if "Lb1E" in name else "<patches>"
             elif kernel and ("spill" in line or "registers" in line):
                 print(f"  ptxas {kernel}: {line.replace('ptxas info    :', '').strip()}")
                 if "spill" in line:
@@ -667,6 +673,17 @@ def main() -> None:
           f"(limit: <= {COUNT_TOL} on < {FLIP_TOL} of counts)")
     check(max_err <= COUNT_TOL and flips < FLIP_TOL, "fpca_conv kernel disagrees with its plain version")
     check(err_s <= COUNT_TOL and flips_s < FLIP_TOL, "the fpca_conv kernel's SIMT design disagrees with its plain version")
+    # the dense calls' own kernel: the frames source on the same frames, bit
+    # for bit the patch source, so within the same limit of plain
+    check(fpca_kernel.frames_fit(frames[256], spec.max_kernel, tables),
+          "the served frames must take the fpca kernel's frames source")
+    got_f = fpca_conv_frames_cuda(frames[256], spec.max_kernel, planes, tables, bn_dev)
+    torch.cuda.synchronize()
+    err_f, flips_f = count_diff(got_f, want)
+    print(f"fpca_conv kernel (frames source) vs plain at M={got_f.shape[0]}: max|Δcount| {err_f}, flip share "
+          f"{flips_f:.3e}; equal to the patch source bit for bit: {torch.equal(got_f, got)}")
+    check(torch.equal(got_f, got), "the fpca kernel's frames source must equal its patch source bit for bit")
+    check(err_f <= COUNT_TOL and flips_f < FLIP_TOL, "the fpca kernel's frames source disagrees with its plain version")
     valid = (torch.arange(patches.shape[0], device=dev) % 3 != 0).float()
     got_v = fpca_conv_cuda(patches, planes, tables, bn_dev, row_valid=valid)
     check(bool((got_v[valid == 0] == 0).all()) and torch.equal(got_v[valid == 1], got[valid == 1]),
@@ -698,21 +715,31 @@ def main() -> None:
 
     # ---- 7. timings and bound ------------------------------------------------
     by_rows = {}
-    for b in BATCHES:   # the tensor-core design (the wrapper) beside the SIMT one, in turns
-        p = patches if b == 256 else extract_windows(frames[b], spec).reshape(-1, spec.n_active_pixels).contiguous()
+    for b in BATCHES:   # each source of the tensor-core design beside the SIMT design and the copy, in turns
+        x = frames[b]
+        p = patches if b == 256 else extract_windows(x, spec).reshape(-1, spec.n_active_pixels).contiguous()
+        fr_ms = time_cuda(lambda: fpca_conv_frames_cuda(x, spec.max_kernel, planes, tables, bn_dev))
         tc_ms = time_cuda(lambda: fpca_conv_cuda(p, planes, tables, bn_dev))
         simt_ms = time_cuda(lambda: simt_fpca(p, planes, tables, bn_dev))
+        copy_ms = time_cuda(lambda: extract_windows(x, spec).reshape(-1, spec.n_active_pixels).contiguous())
         tc_ms2 = time_cuda(lambda: fpca_conv_cuda(p, planes, tables, bn_dev))
-        by_rows[p.shape[0]] = {"ms": statistics.median([tc_ms, tc_ms2]), "simt_ms": simt_ms}
-        print(f"fpca_conv at M={p.shape[0]} (batch {b}) on {smi}: tensor-core design {tc_ms:.4f} / {tc_ms2:.4f} ms, "
-              f"SIMT design {simt_ms:.4f} ms")
-    ms, simt_ms = by_rows[patches.shape[0]]["ms"], by_rows[patches.shape[0]]["simt_ms"]
+        fr_ms2 = time_cuda(lambda: fpca_conv_frames_cuda(x, spec.max_kernel, planes, tables, bn_dev))
+        by_rows[p.shape[0]] = {"ms": statistics.median([fr_ms, fr_ms2]),
+                               "patches_ms": statistics.median([tc_ms, tc_ms2]), "copy_ms": copy_ms,
+                               "simt_ms": simt_ms}
+        print(f"fpca_conv at M={p.shape[0]} (batch {b}) on {smi}: frames source {fr_ms:.4f} / {fr_ms2:.4f} ms; "
+              f"patch source {tc_ms:.4f} / {tc_ms2:.4f} ms after a copy of {copy_ms:.4f} ms; SIMT design "
+              f"{simt_ms:.4f} ms")
+    # the dense calls' kernel is the frames source: its time is the kernel's
+    ms, patches_ms, copy_ms, simt_ms = (by_rows[patches.shape[0]][k]
+                                        for k in ("ms", "patches_ms", "copy_ms", "simt_ms"))
     plain_ms = time_cuda(lambda: fpca_conv_basis(patches, planes, tables, bn_dev))
     M, N = patches.shape
     C, T, NB = prog.out_channels, planes["aw"].shape[1], bucket_model.n_buckets
     fpca_bound, parts, bytes_moved, dot_flops = fpca_bound_ms(M, N, C, T, NB)
     old_bound = max(parts["bytes"], dot_flops / PEAK_FP32_FLOP_PER_S * 1e3)
-    print(f"fpca_conv at M={M}, N={N}, C={C} on {smi}: kernel {ms:.4f} ms (tensor-core design), SIMT design "
+    print(f"fpca_conv at M={M}, N={N}, C={C} on {smi}: kernel {ms:.4f} ms (tensor-core design, frames source; the "
+          f"patch source {patches_ms:.4f} ms after a copy of {copy_ms:.4f} ms), SIMT design "
           f"{simt_ms:.4f} ms, plain {plain_ms:.4f} ms; bound {fpca_bound:.4f} ms, the largest of bytes "
           f"{bytes_moved / 1e6:.1f} MB {parts['bytes']:.4f}, {FPCA_PASSES} bf16 passes of {dot_flops:.3e} FLOP "
           f"{parts['tensor']:.4f}, gate-bank fp32 {parts['fp32']:.4f}, MUFU {parts['mufu']:.4f} (the dots as fp32 "
@@ -736,6 +763,8 @@ def main() -> None:
         "max_abs_err": max_err,
         "flip_share": flips,
         "ms": ms,
+        "patches_ms": patches_ms,
+        "copy_ms": copy_ms,
         "simt_ms": simt_ms,
         "plain_ms": plain_ms,
         "bound_ms": fpca_bound,
@@ -793,6 +822,8 @@ def main() -> None:
     fpca_entry["launches"] = sum(by_path.values())
     fpca_entry["designs"] = {d: sum(v[d] for v in MAIN_PATH_DESIGNS.values()) for d in fpca_kernel.DESIGNS}
     fpca_entry["designs_by_path"] = MAIN_PATH_DESIGNS
+    fpca_entry["sources_by_path"] = MAIN_PATH_SOURCES
+    print(f"fpca launches by source (the wrapper's, by path): {json.dumps(MAIN_PATH_SOURCES)}")
     check(fpca_entry["designs"]["simt"] == 0 and fpca_entry["designs"]["wgmma"] == fpca_entry["launches"],
           f"fpca launches on the main paths by design {fpca_entry['designs']}, {fpca_entry['launches']} in all: "
           "every one must take the tensor-core design")
@@ -937,11 +968,14 @@ def profile_device(fn, runs: int) -> tuple[float, list[str]]:
 def _reset_fpca_counts() -> None:
     fpca_conv_cuda.launches = 0
     fpca_conv_cuda.designs = dict.fromkeys(fpca_conv_cuda.designs, 0)
+    fpca_conv_cuda.sources = dict.fromkeys(fpca_conv_cuda.sources, 0)
 
 
 # each main path's fpca launches by design, read just after the path ran
-# (the kernels line sums them)
+# (the kernels line sums them), and the wrapper's launches by source since
+# the path's reset (a replayed launch counts in neither)
 MAIN_PATH_DESIGNS: dict = {}
+MAIN_PATH_SOURCES: dict = {}
 
 
 def main_path_designs(path: str, designs: dict) -> None:
@@ -951,6 +985,7 @@ def main_path_designs(path: str, designs: dict) -> None:
     check(designs["simt"] == 0, f"{path}: fpca launches by design {designs}, every one must take the tensor-core "
           "design")
     MAIN_PATH_DESIGNS[path] = dict(designs)
+    MAIN_PATH_SOURCES[path] = dict(fpca_conv_cuda.sources)
 
 
 def _raw(out) -> torch.Tensor:

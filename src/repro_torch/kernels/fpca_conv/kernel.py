@@ -32,6 +32,15 @@ that is not 16-byte aligned is copied once to a fresh buffer (the
 tensor-core design's tiles come in by 16-byte copies).  The choice is made
 before the launch, never after a failure; a failed launch raises.  Beside
 ``.launches`` the wrapper counts its launches per design in ``.designs``.
+
+The tensor-core design reads its windows from one of two sources: the
+``(M, N)`` patch matrix (:func:`fpca_conv_cuda`), or the ``(B, H, W,
+c_i)`` f32 frames themselves (:func:`fpca_conv_frames_cuda`), whose
+non-overlapping ``n x n`` windows it stages by the runs of image rows they
+cover (:func:`frames_fit` says which frames it takes; :func:`strip_map` is
+its offset map).  The frames source leaves out the permuting copy that
+makes the patch matrix and gives the same counts bit for bit.
+``.sources`` counts the launches per source.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import math
 
 import numpy as np
 import torch
@@ -53,15 +63,21 @@ __all__ = [
     "weight_planes",
     "fpca_conv_basis",
     "fpca_conv_cuda",
+    "fpca_conv_frames_cuda",
     "design",
+    "frames_fit",
+    "strip_map",
     "DESIGNS",
+    "SOURCES",
 ]
 
 DESIGNS = ("wgmma", "simt")
+SOURCES = ("frames", "patches")
 # what the tensor-core design takes: pixel slots (five k-steps of 16) and
 # the bucket model its epilogue is compiled for (f_avg of degree <= 4 in the
 # window mean); any channel count, in blocks of 8
 TC_MAX_PIXELS, TC_BUCKETS, TC_AVG_TERMS, TC_MAX_AVG_POWER = 80, 5, 15, 4
+_TC_TILE = 128   # window rows a tile of the tensor-core design
 
 # Monomial pairs of the degree-3 bucket surfaces; the kernel combines them
 # in this order (the fit's own order).
@@ -284,6 +300,16 @@ def _launcher() -> ctypes._CFuncPtr:
     return fn
 
 
+@functools.cache
+def _frames_launcher() -> ctypes._CFuncPtr:
+    from repro_torch.kernels import _build
+
+    fn = _build.load("fpca_conv").fpca_conv_frames_launch
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
     if t.device != device or t.dtype != torch.float32 or tuple(t.shape) != shape:
         raise ValueError(
@@ -301,14 +327,66 @@ def design(patches: torch.Tensor, tables: ConvTables) -> str:
     ``TC_MAX_AVG_POWER`` in the window mean (the epilogue the kernel is
     compiled for), ``"simt"`` otherwise.  Neither the channel count nor the
     patch matrix's alignment decides it."""
-    model = tables.model
+    return _design(patches.shape[1], tables.model)
+
+
+def _design(n_pixels: int, model: BucketCurvefitModel) -> str:
     takes = (
-        patches.shape[1] <= TC_MAX_PIXELS
+        n_pixels <= TC_MAX_PIXELS
         and model.n_buckets == TC_BUCKETS
         and len(model.f_avg.exps) == TC_AVG_TERMS
         and max(int(a) for a, _ in model.f_avg.exps) <= TC_MAX_AVG_POWER
     )
     return "wgmma" if takes else "simt"
+
+
+@functools.cache
+def strip_map(n: int, c_i: int) -> np.ndarray:
+    """The frames source's offset map: ``TC_MAX_PIXELS / 2`` uint32 words,
+    word ``p`` the offsets of pixel slots ``2 p`` (low 16 bits) and ``2 p +
+    1`` (high) from a window's first float in a staged tile.  A tile stages
+    its 128 windows as ``[ky][window][n c_i floats]`` (the runs of image
+    rows they cover), so slot ``k = (c, ky, kx)`` (the patch matrix's
+    channel-major order) of a window lies ``ky 128 n c_i + kx c_i + c``
+    floats after its start; slots past ``c_i n n`` are 0 (never read)."""
+    g = n * c_i
+    off = np.zeros(TC_MAX_PIXELS, np.uint32)
+    slots = [ky * _TC_TILE * g + kx * c_i + c for c in range(c_i) for ky in range(n) for kx in range(n)]
+    if len(slots) > TC_MAX_PIXELS:
+        raise ValueError(f"{len(slots)} pixel slots, the tensor-core design takes at most {TC_MAX_PIXELS}")
+    off[: len(slots)] = slots
+    return off[0::2] | off[1::2] << np.uint32(16)
+
+
+def frames_fit(frames: torch.Tensor, window: int, tables: ConvTables) -> bool:
+    """Whether the tensor-core design reads the non-overlapping ``window x
+    window`` windows (stride ``window``, no padding) of these ``(B, H, W,
+    c_i)`` frames straight from them (:func:`fpca_conv_frames_cuda`).  Reads
+    only the tensor's metadata, whatever its device."""
+    return _frames_misfit(frames, window, tables) is None
+
+
+def _frames_misfit(frames: torch.Tensor, n: int, tables: ConvTables) -> str | None:
+    """What keeps the frames source from these frames, or ``None``: float32,
+    contiguous, ``c_i n^2`` pixel slots that the tables serve and the design
+    takes, and the 16-byte rule of ``csrc/fpca_conv.cu``'s header (a
+    16-byte aligned start, image rows of a multiple of 4 floats, ``n c_i
+    gcd(w_o, 128)`` a multiple of 4)."""
+    if frames.ndim != 4 or frames.dtype != torch.float32 or not frames.is_contiguous():
+        return f"needs contiguous float32 (B, H, W, c_i) frames, got {frames.dtype} {tuple(frames.shape)}"
+    B, H, W, c_i = frames.shape
+    if min(B, c_i, n) < 1 or H < n or W < n:
+        return f"no {n} x {n} window in frames {tuple(frames.shape)}"
+    if c_i * n * n != tables.n_real:
+        return f"windows of {c_i * n * n} pixel slots, the tables {tables.n_real}"
+    w_o = W // n
+    if _design(tables.n_real, tables.model) != "wgmma":
+        return "the tables take the SIMT design"
+    if B * (H // n) * w_o >= 2**31:
+        return f"{B * (H // n) * w_o} windows, past the kernel's 32-bit row index"
+    if frames.data_ptr() % 16 or W * c_i % 4 or n * c_i * math.gcd(w_o, _TC_TILE) % 4:
+        return "its row runs break the 16-byte rule"
+    return None
 
 
 def fpca_conv_cuda(
@@ -329,26 +407,20 @@ def fpca_conv_cuda(
     so a launch captured in a CUDA graph serves every count.  A CPU
     ``patches`` takes :func:`fpca_conv_basis`; a CUDA one launches the
     kernel on the current stream, or raises.  Every launch adds one to
-    ``fpca_conv_cuda.launches`` and to its design's count in
-    ``fpca_conv_cuda.designs`` (:func:`design`); a replay of a captured
-    launch counts nothing.
+    ``fpca_conv_cuda.launches``, to its design's count in
+    ``fpca_conv_cuda.designs`` (:func:`design`) and to its source's in
+    ``fpca_conv_cuda.sources``; a replay of a captured launch counts nothing.
     """
     if patches.device.type in ("cpu", "meta"):   # meta: shapes only, no compute exists there
         return fpca_conv_basis(patches, planes, tables, bn_offset, row_valid=row_valid, n_rows=n_rows)
     dev = patches.device
     M, N = patches.shape
-    C = bn_offset.shape[0]
-    T = planes["aw"].shape[1]
     if M < 1:
         raise ValueError("fpca_conv_cuda needs at least one window row")
     if N != tables.n_real:
         raise ValueError(f"patches have {N} pixel slots, the tables {tables.n_real}")
     _check("patches", patches, (M, N), dev)
-    _check("w_pows", planes["w_pows"], (2, 2, N, C), dev)
-    _check("cs", planes["cs"], (2, 4, C), dev)
-    _check("aw", planes["aw"], (2, T, C), dev)
-    _check("bn_offset", bn_offset, (C,), dev)
-    _check("packed tables", tables.packed, (_P_SIZE,), dev)
+    _check_operands(planes, tables, bn_offset, dev)
     if row_valid is not None:
         _check("row_valid", row_valid, (M,), dev)
     if n_rows is not None and (
@@ -360,13 +432,60 @@ def fpca_conv_cuda(
         )
     if patches.data_ptr() % 16:   # the tensor-core design's tiles come in by 16-byte copies
         patches = patches.clone()
-    out = torch.empty((M, C), dtype=torch.float32, device=dev)
+    out = torch.empty((M, bn_offset.shape[0]), dtype=torch.float32, device=dev)
     chosen = design(patches, tables)
     err = _launch(patches, planes, tables, bn_offset, row_valid, out, tensor_cores=chosen == "wgmma", n_rows=n_rows)
     if err:
         raise RuntimeError(f"fpca_conv kernel ({chosen}) launch failed with CUDA error {err}")
+    _count(chosen, "patches")
+    return out
+
+
+def _check_operands(planes: dict, tables: ConvTables, bn_offset: torch.Tensor, dev: torch.device) -> None:
+    N, C, T = tables.n_real, bn_offset.shape[0], planes["aw"].shape[1]
+    _check("w_pows", planes["w_pows"], (2, 2, N, C), dev)
+    _check("cs", planes["cs"], (2, 4, C), dev)
+    _check("aw", planes["aw"], (2, T, C), dev)
+    _check("bn_offset", bn_offset, (C,), dev)
+    _check("packed tables", tables.packed, (_P_SIZE,), dev)
+
+
+def _count(chosen: str, source: str) -> None:
     fpca_conv_cuda.launches += 1
     fpca_conv_cuda.designs[chosen] += 1
+    fpca_conv_cuda.sources[source] += 1
+
+
+def fpca_conv_frames_cuda(
+    frames: torch.Tensor, n: int, planes: dict, tables: ConvTables, bn_offset: torch.Tensor
+) -> torch.Tensor:
+    """The counts :func:`fpca_conv_cuda` gives the patch matrix of the
+    non-overlapping ``n x n`` windows (stride n, no padding) of ``(B, H, W,
+    c_i)`` frames on the card, ``(B (H // n) (W // n), C)`` bit for bit,
+    with the tensor-core design reading the windows from the frames (the
+    frames source): no patch matrix is made.  The frames must pass
+    :func:`frames_fit`, or it raises; so does a CPU tensor (the host takes
+    the patch source).  Counts its launch as :func:`fpca_conv_cuda` does."""
+    if frames.device.type != "cuda":
+        raise ValueError(f"the frames source runs on the card only, the frames are on {frames.device}")
+    why = _frames_misfit(frames, n, tables)
+    if why:
+        raise ValueError(f"the frames source does not take these frames at window {n}: {why}")
+    dev = frames.device
+    _check_operands(planes, tables, bn_offset, dev)
+    B, H, W, c_i = frames.shape
+    C = bn_offset.shape[0]
+    out = torch.empty((B * (H // n) * (W // n), C), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _frames_launcher()(
+            frames.data_ptr(), planes["w_pows"].data_ptr(), planes["cs"].data_ptr(), planes["aw"].data_ptr(),
+            bn_offset.data_ptr(), tables.packed_host.ctypes.data, strip_map(n, c_i).ctypes.data, out.data_ptr(),
+            B, H, W, c_i, n, C, planes["aw"].shape[1], tables.model.n_buckets,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"fpca_conv kernel (wgmma, frames) launch failed with CUDA error {err}")
+    _count("wgmma", "frames")
     return out
 
 
@@ -390,3 +509,4 @@ def _launch(patches, planes, tables, bn_offset, row_valid, out, *, tensor_cores:
 
 fpca_conv_cuda.launches = 0
 fpca_conv_cuda.designs = dict.fromkeys(DESIGNS, 0)
+fpca_conv_cuda.sources = dict.fromkeys(SOURCES, 0)

@@ -17,6 +17,11 @@ the device (``n_rows``), walking only the kept rows: nothing in the call
 waits on the host, so a call with ``m_bucket = M`` can be captured in a
 CUDA graph and replayed for any mask (the streaming segments do so).
 
+A dense call (no mask) of the CUDA kernel on f32 frames with
+non-overlapping windows (stride = kernel, no padding, no binning) feeds the
+tensor-core design straight from the frames (:func:`conv_source`): no patch
+matrix is copied, and the counts are those of the patch path bit for bit.
+
 ``transfer="int8"`` (``precision="int8"`` model programs on the ``basis``
 backend) replaces the sigmoid gate bank by one gather from a 256-entry
 coefficient table (:func:`_transfer_lut`); only ``impl="basis"`` lowers it.
@@ -40,6 +45,8 @@ from repro_torch.kernels.fpca_conv.kernel import (
     conv_tables,
     fpca_conv_basis,
     fpca_conv_cuda,
+    fpca_conv_frames_cuda,
+    frames_fit,
     weight_planes,
 )
 
@@ -52,11 +59,15 @@ __all__ = [
     "window_bucket",
     "segment_bucket",
     "compact_rows",
+    "conv_source",
     "StickyBucket",
 ]
 
 _LANES = 128
-_IMPLS = {"cuda": fpca_conv_cuda, "basis": fpca_conv_basis}
+# the kernels by impl, and the CUDA kernel's frames source (not an impl of
+# its own: :func:`conv_source` picks it for a "cuda" call)
+_FRAMES = "cuda.frames"
+_IMPLS = {"cuda": fpca_conv_cuda, "basis": fpca_conv_basis, _FRAMES: fpca_conv_frames_cuda}
 
 # int8 transfer: the bucket-sigmoid gate bank collapses into a LUT over the
 # 8-bit requantised gate input (256 levels, the SS-ADC's own resolution).
@@ -231,6 +242,27 @@ def pad_to_lanes(
     return F.pad(x, pad), mask
 
 
+def conv_source(
+    images: torch.Tensor, spec: FPCASpec, tables: ConvTables, *, impl: str, masked: bool
+) -> str:
+    """Where a call's kernel reads its windows: ``"frames"`` (the tensor-core
+    design straight from the frames) for an unmasked call of the CUDA
+    kernel on a CUDA tensor with non-overlapping windows (stride = kernel,
+    no padding, no binning) that :func:`~repro_torch.kernels.fpca_conv.kernel.frames_fit`
+    takes; ``"patches"`` (the patch matrix ``extract_windows`` copies)
+    otherwise.  Reads only what the call's input shows."""
+    frames = (
+        impl == "cuda"
+        and not masked
+        and images.device.type == "cuda"
+        and spec.stride == spec.max_kernel
+        and spec.padding == 0
+        and spec.binning == 1
+        and frames_fit(images, spec.max_kernel, tables)
+    )
+    return "frames" if frames else "patches"
+
+
 def _fpca_conv_impl(
     images: torch.Tensor,
     kernel: torch.Tensor,
@@ -251,10 +283,15 @@ def _fpca_conv_impl(
     with layer("encode"):
         w_pos, w_neg = encode_weights(kernel, spec, enc)          # (c_o, N)
     with layer("extract"):
-        patches = extract_windows(images, spec)                   # (B, h_o, w_o, N)
-        B, h_o, w_o, N = patches.shape
+        source = conv_source(images, spec, tables, impl=impl, masked=window_mask is not None)
+        if source == "frames":   # the kernel reads the windows from the frames: nothing to copy
+            n = spec.max_kernel
+            B, h_o, w_o = images.shape[0], images.shape[1] // n, images.shape[2] // n
+        else:
+            patches = extract_windows(images, spec)               # (B, h_o, w_o, N)
+            B, h_o, w_o, N = patches.shape
+            flat = patches.reshape(B * h_o * w_o, N).contiguous()
         M = B * h_o * w_o
-        flat = patches.reshape(M, N).contiguous()
     with layer("planes"):
         planes = weight_planes(w_pos.T, w_neg.T, tables)
 
@@ -273,7 +310,11 @@ def _fpca_conv_impl(
 
     kw = {} if lut is None else {"lut": lut}
     with layer("kernel"):
-        counts = _IMPLS[impl](flat, planes, tables, bn_offset.float().contiguous(), n_rows=n_rows, **kw)
+        bn = bn_offset.float().contiguous()
+        if source == "frames":
+            counts = _IMPLS[_FRAMES](images, n, planes, tables, bn)
+        else:
+            counts = _IMPLS[impl](flat, planes, tables, bn, n_rows=n_rows, **kw)
     if idx is not None:
         # scatter-add back: rows past the kept count are exact zeros, so
         # the duplicate fill index 0 adds nothing
@@ -307,8 +348,8 @@ def make_fpca_conv_executable(
     """
     adc = adc or ADCConfig()
     enc = enc or WeightEncoding()
-    if impl not in _IMPLS:
-        raise ValueError(f"unknown impl {impl!r}; available: {tuple(_IMPLS)}")
+    if impl not in _IMPLS or impl == _FRAMES:
+        raise ValueError(f"unknown impl {impl!r}; available: {tuple(k for k in _IMPLS if k != _FRAMES)}")
     if transfer not in ("f32", "int8"):
         raise ValueError(f"unknown transfer {transfer!r}")
     if transfer != "f32" and impl != "basis":

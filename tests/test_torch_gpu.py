@@ -31,6 +31,13 @@ Tolerances, each kernel against its plain PyTorch version on the card:
   equal to the host's bit for bit (integer sums below 2**24 are exact in
   f32 in any order); ``fused_patched_logits`` equal to ``patched_logits``
   row by row.
+- fpca_conv on the frames source (``fpca_conv_frames_cuda``: the
+  tensor-core design reading the windows from the frames): equal to the patch source on the
+  patch matrix ``extract_windows`` copies, bit for bit (the same A values
+  in the same slots, passes and epilogue), at the frontend's and
+  fpca_cnn's frame sizes, a ragged last tile, a channel stack and a replay
+  of a captured launch; a dense ``run`` routed there equal to the same call
+  forced onto the patch source.
 - fpca_conv with a device row count ``n_rows``: rows below it within the
   fpca limit of the plain version and bit-equal to the launch without it
   (rows are independent), rows at or past it exact zeros, for both designs.
@@ -69,7 +76,7 @@ import torch
 from repro_torch import fpca
 from repro_torch.core.adc import ADCConfig
 from repro_torch.core.curvefit import fit_bucket_model
-from repro_torch.core.fpca_sim import calibrate_gain, fpca_forward
+from repro_torch.core.fpca_sim import calibrate_gain, extract_windows, fpca_forward
 from repro_torch.core.frontend import FPCAFrontend
 from repro_torch.data.pipeline import SyntheticVWW
 from repro_torch.configs import ARCHS, reduce_for_smoke
@@ -85,10 +92,12 @@ from repro_torch.kernels.fpca_conv.kernel import (
     conv_tables,
     fpca_conv_basis,
     fpca_conv_cuda,
+    fpca_conv_frames_cuda,
     weight_planes,
 )
 from repro_torch.kernels.fpca_conv import kernel as fpca_kernel
 from repro_torch.kernels.fpca_conv.kernel import design as fpca_design
+from repro_torch.kernels.fpca_conv import ops as fpca_ops
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_cuda
 from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref
@@ -374,8 +383,8 @@ def test_channel_blocks_equal_their_configs_and_walk_the_row_count(cuda, model, 
         assert torch.equal(got[n_rows:], torch.zeros_like(got[n_rows:]))
 
 
-def _segment_model(model, cuda, precision="f32"):
-    spec = fpca.FPCASpec(image_h=48, image_w=48, out_channels=8, kernel=5, stride=5)
+def _segment_model(model, cuda, precision="f32", size=48):
+    spec = fpca.FPCASpec(image_h=size, image_w=size, out_channels=8, kernel=5, stride=5)
     gate = fpca.DeltaGateConfig(threshold=0.02, hysteresis=0, keyframe_interval=7)
     prog = fpca.FPCAModelProgram(frontend=fpca.FPCAProgram(spec=spec, gate=gate), precision=precision,
                                  head=(fpca.DenseSpec(16, activation="relu"), fpca.DenseSpec(3)))
@@ -503,37 +512,46 @@ def test_a_profiled_calls_ops_fall_under_its_layer_ranges(cuda, model):
     """Under ``torch.profiler`` the fpca kernel is launched inside
     ``fpca.kernel`` and the extraction's ops inside ``fpca.extract`` (by
     the correlation id of each op's launch); no ``fpca.*`` range is copied
-    onto the device's timeline."""
+    onto the device's timeline.  A call on the patch source (48x48 frames:
+    rows of 9 windows, which the 16-byte rule keeps off the frames source)
+    launches its permuting copy under ``fpca.extract``; a call on the
+    frames source (120x120 frames) launches nothing there."""
     from torch.profiler import ProfilerActivity, profile
 
-    m = _segment_model(model, cuda)
-    frames = torch.rand((64, 48, 48, 3), device=cuda)
-    m.run(frames)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    for size, source in ((48, "patches"), (120, "frames")):
+        m = _segment_model(model, cuda, size=size)
+        frames = torch.rand((64, size, size, 3), device=cuda)
         m.run(frames)
         torch.cuda.synchronize()
-    ranges, launches, ops = [], {}, []
-    for e in prof.profiler.kineto_results.events():
-        if str(e.device_type()).endswith("CUDA"):
-            ops.append((e.name(), e.correlation_id()))
-        elif e.name().startswith("fpca."):
-            ranges.append((e.start_ns(), e.start_ns() + e.duration_ns(), e.name()))
-        elif e.name().startswith("cuda") and e.correlation_id():
-            launches[e.correlation_id()] = e.start_ns()
+        sources = dict(fpca_conv_cuda.sources)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            m.run(frames)
+            torch.cuda.synchronize()
+        assert fpca_conv_cuda.sources == {**sources, source: sources[source] + 1}
+        ranges, launches, ops = [], {}, []
+        for e in prof.profiler.kineto_results.events():
+            if str(e.device_type()).endswith("CUDA"):
+                ops.append((e.name(), e.correlation_id()))
+            elif e.name().startswith("fpca."):
+                ranges.append((e.start_ns(), e.start_ns() + e.duration_ns(), e.name()))
+            elif e.name().startswith("cuda") and e.correlation_id():
+                launches[e.correlation_id()] = e.start_ns()
 
-    def innermost(t):
-        inside = [r for r in ranges if r[0] <= t < r[1]]
-        return max(inside)[2] if inside else None
+        def innermost(t):
+            inside = [r for r in ranges if r[0] <= t < r[1]]
+            return max(inside)[2] if inside else None
 
-    under = {}
-    for name, corr in ops:
-        under.setdefault(innermost(launches[corr]) if corr in launches else None, []).append(name)
-    assert not any(name.startswith("fpca.") for name, _ in ops)
-    assert {r[2] for r in ranges} >= {"fpca.run", "fpca.prepare", "fpca.launch.model", "fpca.encode",
-                                      "fpca.extract", "fpca.planes", "fpca.kernel", "fpca.head"}
-    assert any("fpca_tc_kernel" in n for n in under["fpca.kernel"]), under
-    assert under["fpca.extract"], under
+        under = {}
+        for name, corr in ops:
+            under.setdefault(innermost(launches[corr]) if corr in launches else None, []).append(name)
+        assert not any(name.startswith("fpca.") for name, _ in ops)
+        assert {r[2] for r in ranges} >= {"fpca.run", "fpca.prepare", "fpca.launch.model", "fpca.encode",
+                                          "fpca.extract", "fpca.planes", "fpca.kernel", "fpca.head"}
+        assert any("fpca_tc_kernel" in n for n in under["fpca.kernel"]), under
+        if source == "patches":
+            assert under["fpca.extract"], under
+        else:
+            assert not under.get("fpca.extract"), under
 
 
 def test_segment_reprogram_and_servo_step_build_nothing(cuda, model):
@@ -555,6 +573,90 @@ def test_segment_reprogram_and_servo_step_build_nothing(cuda, model):
     want = fresh.run_segment(frames, m_bucket=16, gate=gate)
     assert torch.equal(seg.counts, want.counts) and torch.equal(seg.logits, want.logits)
     assert not torch.equal(seg.counts, first.counts)
+
+
+# ---------------------------------------------------------------------------
+# the frames source: the tensor-core design reads the windows from the frames
+# ---------------------------------------------------------------------------
+
+
+def _frames_case(cuda, model, b: int, size: int, c: int, seed: int):
+    """b frames of size x size x 3, c channels: (frames, their patch matrix,
+    planes, tables, bn_offset, spec)."""
+    g = torch.Generator().manual_seed(seed)
+    frames = torch.rand((b, size, size, 3), generator=g).to(cuda)
+    w = torch.rand((75, c), generator=g).to(cuda)
+    bn = torch.randint(0, 30, (c,), generator=g).float().to(cuda)
+    tables = conv_tables(model, ADCConfig(), 75, cuda)
+    spec = fpca.FPCASpec(image_h=size, image_w=size, out_channels=c, kernel=5, stride=5)
+    patches = extract_windows(frames, spec).reshape(-1, 75)
+    return frames, patches, weight_planes(w, w.roll(1, dims=1), tables), tables, bn, spec
+
+
+@pytest.mark.parametrize("b,size,c", [(2, 1120, 8), (64, 120, 8), (63, 120, 8), (8, 120, 16)],
+                         ids=["frontend_b2", "fpca_cnn_b64", "fpca_cnn_b63_ragged_last_tile", "stacked_c16"])
+def test_frames_source_equals_the_patch_source_bit_for_bit(cuda, model, b, size, c):
+    """The frontend's 1120x1120 frames (tiles straddle rows of 224
+    windows), fpca_cnn's 120x120 (rows of 24, tiles straddle frames; at
+    batch 63 the last tile is ragged) and a channel-stacked C = 16 launch:
+    the frames source's counts equal the patch source's bit for bit, within
+    the fpca limit of the plain version; each source counts its launch, both
+    on the tensor-core design; each 8-channel config of the stack equals its
+    own frames launch."""
+    frames, patches, planes, tables, bn, _ = _frames_case(cuda, model, b, size, c, seed=b + size + c)
+    sources, designs = dict(fpca_conv_cuda.sources), dict(fpca_conv_cuda.designs)
+    got = fpca_conv_frames_cuda(frames, 5, planes, tables, bn)
+    want = fpca_conv_cuda(patches, planes, tables, bn)
+    plain = fpca_conv_basis(patches, planes, tables, bn)
+    torch.cuda.synchronize()
+    assert fpca_conv_cuda.sources == {"frames": sources["frames"] + 1, "patches": sources["patches"] + 1}
+    assert fpca_conv_cuda.designs == {**designs, "wgmma": designs["wgmma"] + 2}
+    assert torch.equal(got, want)
+    diff = (got - plain).abs()
+    assert float(diff.max()) <= 1.0 and float((diff > 0).float().mean()) < 0.05
+    for lo in range(0, c if c > 8 else 0, 8):
+        part = {k: v[..., lo:lo + 8].contiguous() for k, v in planes.items()}
+        own = fpca_conv_frames_cuda(frames, 5, part, tables, bn[lo:lo + 8].contiguous())
+        assert torch.equal(own, got[:, lo:lo + 8])
+
+
+def test_a_captured_frames_launch_replays_new_frames_bit_for_bit(cuda, model):
+    """A frames-source launch captured in a CUDA graph (after a warm-up
+    launch on a side stream, as the segment executor does) and replayed on
+    new frames copied into its input equals the patch source's eager launch
+    on them."""
+    frames, _, planes, tables, bn, spec = _frames_case(cuda, model, 16, 120, 8, seed=7)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fpca_conv_frames_cuda(frames, 5, planes, tables, bn)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fpca_conv_frames_cuda(frames, 5, planes, tables, bn)
+    for seed in (8, 9):
+        new = torch.rand(frames.shape, generator=torch.Generator().manual_seed(seed)).to(cuda)
+        frames.copy_(new)
+        graph.replay()
+        want = fpca_conv_cuda(extract_windows(new, spec).reshape(-1, 75), planes, tables, bn)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("size,source", [(120, "frames"), (48, "patches")])
+def test_a_dense_run_takes_the_source_its_frames_allow_and_equals_the_patch_route(cuda, model, monkeypatch, size,
+                                                                                 source):
+    """``CompiledModel.run`` on 120x120 frames takes the frames source, on
+    48x48 (rows of 9 windows) the patch source; either way its logits equal
+    the same call with the patch source forced, bit for bit."""
+    m = _segment_model(model, cuda, size=size)
+    frames = torch.rand((4, size, size, 3), generator=torch.Generator().manual_seed(size)).to(cuda)
+    sources = dict(fpca_conv_cuda.sources)
+    logits = m.run(frames)
+    torch.cuda.synchronize()
+    assert fpca_conv_cuda.sources == {**sources, source: sources[source] + 1}
+    monkeypatch.setattr(fpca_ops, "conv_source", lambda *a, **kw: "patches")
+    assert torch.equal(m.run(frames), logits)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Time the fpca kernel from one source tree, for an A/B of two trees in one call.
 
     python tools/fpca_kernel_ab.py <src> [C ...]
+    python tools/fpca_kernel_ab.py <src> --frames
 
 ``<src>`` is the ``src`` directory of a checkout (for the parent commit,
 ``git archive <parent> src`` unpacked into a git-ignored directory such as
@@ -12,6 +13,13 @@ wrapper's time (``ms``: median of 30 launches, each behind an L2 flush),
 the SIMT design's through the C entry point, the launches by design, and the
 largest count difference and flip share against the plain version.  Run the
 trees in turns (parent, change, change, parent) within one call.
+
+With ``--frames``, at the benchmark's two dense cells (256 frames of
+1120x1120x3, M = 12,845,056; 16,384 of 120x120x3, M = 9,437,184; C = 8,
+stride = kernel = 5) it times instead the copy that makes the patch matrix
+(``extract_windows``), the patch source's launch on it and, where the tree
+has it, the frames source's launch on the frames (``fpca_conv_frames_cuda``),
+and checks that the two sources' counts are equal.
 """
 
 import json
@@ -45,6 +53,36 @@ def time_cuda(fn, iters: int = 30) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
+def frames_ab(dev, tables, g) -> dict:
+    from repro_torch.core.fpca_sim import extract_windows
+    from repro_torch.core.mapping import FPCASpec
+
+    w = torch.rand((75, 8), generator=g).to(dev)
+    planes = K.weight_planes(w, w.roll(1, dims=1), tables)
+    bn = torch.randint(0, 30, (8,), generator=g).float().to(dev)
+    frames_cuda = getattr(K, "fpca_conv_frames_cuda", None)   # a tree before the frames source has none
+    on_card = torch.Generator(dev).manual_seed(0)
+    out = {}
+    for b, size in ((256, 1120), (16384, 120)):
+        frames = torch.rand((b, size, size, 3), generator=on_card, device=dev)
+        spec = FPCASpec(image_h=size, image_w=size, out_channels=8, kernel=5, stride=5)
+
+        def copy():
+            return extract_windows(frames, spec).reshape(-1, 75).contiguous()
+
+        patches = copy()
+        row = {"M": patches.shape[0], "copy_ms": time_cuda(copy),
+               "patches_ms": time_cuda(lambda: K.fpca_conv_cuda(patches, planes, tables, bn))}
+        if frames_cuda is not None:
+            row["equal"] = torch.equal(frames_cuda(frames, 5, planes, tables, bn),
+                                       K.fpca_conv_cuda(patches, planes, tables, bn))
+            row["frames_ms"] = time_cuda(lambda: frames_cuda(frames, 5, planes, tables, bn))
+        out[f"{b}x{size}"] = row
+        del frames, patches
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     for src, log in _build.build(["fpca_conv"]).items():
         for line in log.splitlines():
@@ -53,8 +91,12 @@ def main() -> None:
     dev = torch.device("cuda")
     tables = K.conv_tables(fit_bucket_model(n_pixels=75, device=dev), ADCConfig(), 75, dev)
     g = torch.Generator().manual_seed(0)
-    patches = torch.rand((147456, 75), generator=g).to(dev)
     out = {"src": sys.argv[1]}
+    if sys.argv[2:] == ["--frames"]:
+        out.update(frames_ab(dev, tables, g))
+        print(json.dumps(out))
+        return
+    patches = torch.rand((147456, 75), generator=g).to(dev)
     for c in [int(a) for a in sys.argv[2:]] or [8]:
         w = torch.rand((75, c), generator=g).to(dev)
         planes = K.weight_planes(w, w.roll(1, dims=1), tables)
